@@ -1,0 +1,1 @@
+"""Numerical kernels of the PyTorch port and their plain PyTorch versions."""
