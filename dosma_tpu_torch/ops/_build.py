@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` is compiled on first use into a shared library with a
 plain C interface, under ``dosma_tpu_torch/_build/`` (listed in
 ``.gitignore``). The library's file name carries a hash of the sources and
 the compiler flags, so an edited source is rebuilt and a stale library is
-never loaded. A failed build or load raises: there is no fallback.
+never loaded. Generated sources (the generic LM kernel, one per model) are
+written beside their libraries and cached the same way, under the hash of
+the generated text, the headers and the flags. A failed build or load
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library"]
+__all__ = ["load_library", "load_generated"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
@@ -47,32 +50,25 @@ def _nvcc_flags(fmad: bool) -> tuple:
     return tuple("-fmad=true" if f == "-fmad=false" else f for f in _NVCC_FLAGS)
 
 
-def _sources_digest(name: str, flags: tuple) -> str:
+def _digest(flags: tuple, main_name: str, main_text: bytes) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+    for path in sorted(_CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
+    h.update(main_name.encode())
+    h.update(main_text)
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is not built yet, and load it.
+def _sources_digest(name: str, flags: tuple) -> str:
+    path = _CSRC / f"{name}.cu"
+    return _digest(flags, path.name, path.read_bytes())
 
-    The compiler's register and spill report (``-Xptxas -v``) is kept beside
-    the library as ``<name>-<hash>.log``; ``load_library(name).build_seconds``
-    is the compile time (0 when an existing build was loaded). ``fmad=True``
-    builds a second library with fused multiply-adds, which only
-    ``tools/profile_monoexp_fit.py`` loads, to measure what ``-fmad=false``
-    costs.
-    """
-    flags = _nvcc_flags(fmad)
-    src = _CSRC / f"{name}.cu"
-    if not src.is_file():
-        raise FileNotFoundError(f"kernel source {src} missing")
+
+def _load(src: Path, stem: str, flags: tuple) -> ctypes.CDLL:
+    """Compile ``src`` into ``_build/lib<stem>.so`` unless it exists; load it."""
     out_dir = _BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
-    stem = f"{name}-{_sources_digest(name, flags)}"
     lib_path = out_dir / f"lib{stem}.so"
     seconds = 0.0
     if not lib_path.is_file():
@@ -98,3 +94,38 @@ def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
     lib.build_seconds = seconds
     lib.build_log = out_dir / f"{stem}.log"
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is not built yet, and load it.
+
+    The compiler's register and spill report (``-Xptxas -v``) is kept beside
+    the library as ``<name>-<hash>.log``; ``load_library(name).build_seconds``
+    is the compile time (0 when an existing build was loaded). ``fmad=True``
+    builds a second library with fused multiply-adds, which only
+    ``tools/profile_monoexp_fit.py`` loads, to measure what ``-fmad=false``
+    costs.
+    """
+    flags = _nvcc_flags(fmad)
+    src = _CSRC / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"kernel source {src} missing")
+    return _load(src, f"{name}-{_sources_digest(name, flags)}", flags)
+
+
+@functools.lru_cache(maxsize=None)
+def load_generated(name: str, source: str) -> ctypes.CDLL:
+    """Compile a generated CUDA source (which may include ``csrc/*.cuh``)
+    once per distinct text, and load it. The source is kept beside its
+    library as ``<name>-<hash>.cu``."""
+    flags = _nvcc_flags(False)
+    stem = f"{name}-{_digest(flags, name, source.encode())}"
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _BUILD_DIR / f"{stem}.cu"
+    if not src.is_file():
+        fd, tmp = tempfile.mkstemp(suffix=".cu", dir=_BUILD_DIR)
+        with os.fdopen(fd, "w") as f:
+            f.write(source)
+        os.replace(tmp, src)
+    return _load(src, stem, flags)

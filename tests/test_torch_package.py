@@ -28,7 +28,8 @@ def _run(code: str, env=None) -> str:
 def test_import_loads_no_jax_pandas_yaml():
     out = _run(
         "import sys, dosma_tpu_torch, dosma_tpu_torch.ops.monoexp, "
-        "dosma_tpu_torch.ops.monoexp_pipeline\n"
+        "dosma_tpu_torch.ops.monoexp_pipeline, dosma_tpu_torch.ops.nlls, "
+        "dosma_tpu_torch.ops.biexp, dosma_tpu_torch.ops.generic_lm\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu')))"
     )
