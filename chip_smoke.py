@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fitting paths once on a CUDA card, and check them.
+"""Drive the PyTorch port's paths once on a CUDA card, and check them.
 
 Usage, from the repository root on a machine with one CUDA card:
 
@@ -9,9 +9,9 @@ Usage, from the repository root on a machine with one CUDA card:
 Phases (any failure raises and exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build every kernel from dosma_tpu_torch/csrc/, one nvcc process per
-     source, all started together: monoexp_lm.cu, biexp_lm.cu and the
-     generic LM kernel generated for each model used below; print the nvcc
-     seconds and the ptxas register and spill counts;
+     source, all started together: monoexp_lm.cu, biexp_lm.cu,
+     warp_grid.cu and the generic LM kernel generated for each model used
+     below; print the nvcc seconds and the ptxas register and spill counts;
   3. hold each kernel against its plain PyTorch version on the card at
      small shapes: edge cases (all-zero voxel, y_bounds, nan_policy="keep"
      with one iteration, N not a multiple of the block, per-voxel p0, a
@@ -19,7 +19,11 @@ Phases (any failure raises and exits non-zero):
      with P = 1, 2, 3, 4 built from every whitelisted operation.
      Tolerance: |Δ| <= 1e-5 * max(1, |v|) on every parameter and r2 of
      every voxel, identical NaN and infinity positions, converged flags
-     equal on >= 99.9% of voxels;
+     equal on >= 99.9% of voxels. The warp kernel, orders 1 and 3: identity,
+     a rotation with a shift, a map partly outside the volume, an axis
+     permutation, NB = 1, 3, 9, one matrix per group, output shapes that
+     differ from the source and are not multiples of 8; every voxel within
+     1e-5 * max(1, |v|) (bit equality is the aim, and reported);
   4. monoexponential relaxometry (the first slice's main path): four
      512x512x64 echo volumes on the card (16.7M voxels, noisy data made
      from seed 0) through MonoExponentialFit(bounds=(0, 100),
@@ -39,19 +43,41 @@ Phases (any failure raises and exits non-zero):
      5 points (bench.py's generic config, seed 0) through curve_fit on the
      card; exactly one generic_lm launch; the same checks and times as
      phase 5, and the time of lm_fit (the torch.func.jvp engine) on the
-     same data.
-Each path (phases 4, 5, 6) runs with every launch count set to 0 just
+     same data;
+  7. matrix registration at full width: bench.py's phantom (192x192x48,
+     voxels 0.5x0.6x2.0 mm, a bright box plus noise, moving = fixed rolled
+     by (4, -3, 1), RandomState(5)) as host volumes through
+     register(..., "affine") on the default device (the card): first call
+     and warm wall (median of 3); exactly one warp_grid launch in one warm
+     call; recovery error against the known shift < 0.5 voxel; RMSE against
+     fixed inside the box falls >= 4x; apply_warp of a 4-volume stack with
+     the written transform: exactly one launch; both warps (order 3, 196x196x52
+     coefficients onto 192x192x48, NB = 1 and 4) held against the plain
+     version on the same sources and B, every voxel within the tolerance of
+     phase 3;
+  8. the warp kernel at a knee scan's size: 4 volumes of 384x384x160 f32
+     (OAI DESS) under bench.py's rotation, orders 1 and 3: kernel and plain
+     version compared on every voxel; kernel, plain version, the order-3
+     prefilter alone and, for order 1, F.grid_sample (the library yardstick,
+     never used by the port) timed (CUDA events, median of 5); bytes,
+     achieved bandwidth and the bound; the bench size 192x192x48, order 1,
+     one volume.
+Each path (phases 4, 5, 6, 7) runs with every launch count set to 0 just
 before it and read just after. The last two lines are one JSON object
-with every kernel and the result object. It imports nothing of JAX.
+with every kernel (its bound: the larger of the bytes it must move over
+3.35 TB/s and its float32 operations over 67 TFLOP/s) and the result
+object. It imports nothing of JAX.
 """
 
 import argparse
 import concurrent.futures
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +99,20 @@ GENERIC_P0 = (1.0, -1 / 30, 0.0)
 # Noiseless data: on the CPU the plain versions reach scipy to <= 3e-5
 # relative RMSE on every parameter; the gate leaves room for float32.
 PARITY_GATE_FIT = 1e-3
+
+REG_SHAPE = (192, 192, 48)  # phase 7 (bench.py:650-681)
+REG_AFFINE = np.diag([0.5, 0.6, 2.0, 1.0])
+REG_SHIFT = (4, -3, 1)  # moving = fixed rolled by this many voxels
+KNEE_SHAPE = (384, 384, 160)  # phase 8: OAI DESS matrix
+KNEE_VOLUMES = 4
+WARP_AFFINE = np.diag([0.5, 0.5, 2.0, 1.0])  # bench.py:697-706
+WARP_ANGLE, WARP_SHIFT = 0.07, (1.2, -0.7, 0.4)
+
+# H100 SXM peaks (NVIDIA data sheet): the bound of a kernel is the larger of
+# its bytes over the memory rate and its float32 operations over the
+# float32 (non-tensor-core) rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def offset_exp(x, a, b, c):
@@ -177,22 +217,46 @@ def time_ms(fn, reps=5):
     return statistics.median(times), times
 
 
-def reset_launches():
+def _wrappers():
     from dosma_tpu_torch.ops.biexp import biexp_lm
     from dosma_tpu_torch.ops.generic_lm import generic_lm
     from dosma_tpu_torch.ops.monoexp import monoexp_lm
+    from dosma_tpu_torch.ops.warp import warp_grid
 
-    for fn in (monoexp_lm, biexp_lm, generic_lm):
+    return {"monoexp_lm": monoexp_lm, "biexp_lm": biexp_lm, "generic_lm": generic_lm,
+            "warp_grid": warp_grid}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def launch_counts():
-    from dosma_tpu_torch.ops.biexp import biexp_lm
-    from dosma_tpu_torch.ops.generic_lm import generic_lm
-    from dosma_tpu_torch.ops.monoexp import monoexp_lm
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
-    return {"monoexp_lm": monoexp_lm.launches, "biexp_lm": biexp_lm.launches,
-            "generic_lm": generic_lm.launches}
+
+def expect_launches(path, **want):
+    counts = launch_counts()
+    expected = {name: want.get(name, 0) for name in counts}
+    check(counts == expected, f"the {path} path launched {counts}, not {expected}")
+    return counts
+
+
+def bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations") for this much work on the card."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_bound(yT, out_rows, flops_per_voxel):
+    """Bound of an LM kernel: y read once, the packed rows written once; the
+    operation side counts one LM iteration a voxel (iteration counts are not
+    measured, so this is a lower bound of the work)."""
+    T, N = yT.shape
+    nbytes = T * N * 4 + out_rows * N * 4
+    return bound(nbytes, flops_per_voxel * N)
 
 
 def scipy_parity(name, model_np, x, Y, popt_flat, idx, p0):
@@ -221,7 +285,8 @@ def build_all():
     from dosma_tpu_torch.ops.generic_lm import build_kernel, compile_model
 
     jobs = {"monoexp_lm.cu": lambda: _build.load_library("monoexp_lm"),
-            "biexp_lm.cu": lambda: _build.load_library("biexp_lm")}
+            "biexp_lm.cu": lambda: _build.load_library("biexp_lm"),
+            "warp_grid.cu": lambda: _build.load_library("warp_grid")}
     for name, (model, nparams, _, _) in GENERIC_MODELS.items():
         program = compile_model(model, nparams)
         jobs[f"generic_lm ({name})"] = lambda p=program: build_kernel(p)
@@ -344,6 +409,71 @@ def generic_small_cases(rs):
     return cases
 
 
+def rotation_B(shape, deg, shift, scale=1.0):
+    """Index-space map (3x4): rotation about axis 2 around the volume centre,
+    an isotropic scale and a shift."""
+    a = np.deg2rad(deg)
+    R = scale * np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+    c = (np.asarray(shape) - 1) / 2.0
+    return np.concatenate([R, (c - R @ c + np.asarray(shift))[:, None]], axis=1).astype(np.float32)
+
+
+def warp_small_cases():
+    """(name, NB, source shape, output shape, B (3x4 or (G, 3, 4)))."""
+    perm = np.array([[0, 0, 1, 2.5], [0, 1, 0, 0.5], [1, 0, 0, -1.0]], np.float32)
+    return [
+        ("identity", 2, (20, 21, 6), (20, 21, 6), np.eye(4, dtype=np.float32)[:3]),
+        ("rotation_shift", 2, (22, 20, 7), (22, 20, 7), rotation_B((22, 20, 7), 3, (0.7, -1.3, 0.4))),
+        ("nb1", 1, (20, 20, 5), (20, 20, 5), rotation_B((20, 20, 5), -2, (0.3, 0.2, -0.6))),
+        ("nb3", 3, (20, 20, 5), (20, 20, 5), rotation_B((20, 20, 5), 2.5, (-0.4, 0.9, 0.1))),
+        ("nb9", 9, (10, 9, 6), (11, 7, 5), rotation_B((10, 9, 6), 4, (0.2, 0.3, 0.1))),
+        ("partly_outside", 2, (20, 22, 6), (20, 22, 6),
+         rotation_B((20, 22, 6), 1, (6.5, -5.2, 2.3), 1.1)),
+        ("other_output_shape", 2, (22, 20, 7), (19, 23, 5), rotation_B((22, 20, 7), 1.5, (0.5, -0.5, 0.8))),
+        ("axis_permutation", 2, (9, 8, 10), (10, 8, 9), perm),
+        ("one_matrix_per_group", 4, (33, 29, 17), (31, 35, 13),
+         np.stack([rotation_B((33, 29, 17), 5, (0.5, 0, 0)), rotation_B((33, 29, 17), -3, (0, 0.7, 0.2))])),
+        ("nb4_bench_like", 4, (64, 60, 24), (64, 60, 24), rotation_B((64, 60, 24), 4, (1.2, -0.7, 0.4))),
+    ]
+
+
+def compare_warp(name, got, ref):
+    """Every voxel within TOL * max(1, |v|), identical NaN positions.
+    Returns (max |Δ|, bit equal)."""
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    check(torch.equal(torch.isnan(got), torch.isnan(ref)), f"{name}: NaN positions differ")
+    diff = torch.nan_to_num((got - ref).abs(), nan=0.0)
+    outside = int((diff > TOL * torch.clamp(ref.abs(), min=1.0)).sum())
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(outside == 0, f"{name}: {outside} voxels outside tolerance, max |Δ| {err}")
+    return err, bool(torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref)))
+
+
+def warp_small(dev):
+    """Phase 3, warp kernel: each case and order against the plain version."""
+    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid, warp_grid_reference
+
+    worst, n_equal, n_cases = 0.0, 0, 0
+    rs = np.random.RandomState(4)
+    for name, nb, src_shape, out_shape, B in warp_small_cases():
+        vols = torch.from_numpy((rs.rand(nb, *src_shape) * 4 - 1).astype(np.float32)).to(dev)
+        Bt = torch.from_numpy(B).to(dev)
+        for order in (1, 3):
+            srcs = prepare_sources(vols, order)
+            got = warp_grid(srcs, Bt, out_shape, order)
+            torch.cuda.synchronize()
+            ref = warp_grid_reference(srcs, Bt, out_shape, order)
+            torch.cuda.synchronize()
+            err, equal = compare_warp(f"warp_grid {name} order {order}", got, ref)
+            worst = max(worst, err)
+            n_equal += equal
+            n_cases += 1
+            print(f"compare warp_grid {name} order {order}: NB={nb} {src_shape} -> {out_shape} "
+                  f"max|Δ|={err:.3g} bit-equal={equal}")
+    print(f"warp_grid small cases: {n_equal} of {n_cases} bit-equal, worst |Δ| {worst:.3g}")
+    return worst
+
+
 def small_cases(dev):
     """Phase 3: every kernel against its plain version. Returns the
     largest |Δ| on parameters and r2 for each kernel."""
@@ -351,7 +481,7 @@ def small_cases(dev):
     from dosma_tpu_torch.ops.generic_lm import compile_model, generic_lm, generic_lm_reference
     from dosma_tpu_torch.ops.monoexp import monoexp_lm, monoexp_lm_reference
 
-    worst = {"monoexp_lm": 0.0, "biexp_lm": 0.0, "generic_lm": 0.0}
+    worst = {"monoexp_lm": 0.0, "biexp_lm": 0.0, "generic_lm": 0.0, "warp_grid": 0.0}
 
     def run(kernel, name, fn, ref_fn, args, kw, shape):
         got = fn(*args, **kw)
@@ -381,6 +511,7 @@ def small_cases(dev):
             y, kw = y.T.contiguous(), dict(kw, y_layout="tn")
         run("generic_lm", name, generic_lm, generic_lm_reference, (program, x, y, p0), kw,
             Y.shape)
+    worst["warp_grid"] = warp_small(dev)
     return worst
 
 
@@ -441,8 +572,7 @@ def phase_monoexp(dt, dev, card):
     counts = launch_counts()
     launches = counts["monoexp_lm"]
 
-    check(counts == {"monoexp_lm": 1, "biexp_lm": 0, "generic_lm": 0},
-          f"the monoexp path launched {counts}, not monoexp_lm once")
+    expect_launches("monoexp", monoexp_lm=1)
     check(isinstance(tc_map.A, torch.Tensor) and tc_map.A.is_cuda, "tc map is not on the card")
     check(tc_map.shape == SHAPE and r2_map.shape == SHAPE, f"map shape {tc_map.shape}")
     check(bool(torch.isfinite(tc_map.A).all()), "tc map has non-finite values")
@@ -513,8 +643,10 @@ def phase_monoexp(dt, dev, card):
     print(f"  MonoExponentialFit.fit (warm): {fit_ms:.4f} ms ({N / fit_ms * 1e3:.6g} voxels/s) "
           f"runs {[round(t, 4) for t in fit_all]}")
     print(f"  T2.metric_rows (warm): {metrics_ms:.4f} ms runs {[round(t, 4) for t in metrics_all]}")
+    b_ms, b_by = lm_bound(yT, 4, 20 * T + 40)
     return {"launches": launches, "max_abs_err": max(max_err, max_err_r2),
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 # ----------------------------------------------------------------------
@@ -562,9 +694,7 @@ def phase_biexp(dt, dev, card):
     popt_map, r2_map = fitter.fit(BIEXP_X, ys)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts = launch_counts()
-    check(counts == {"monoexp_lm": 0, "biexp_lm": 1, "generic_lm": 0},
-          f"the biexp path launched {counts}, not biexp_lm once")
+    counts = expect_launches("biexp", biexp_lm=1)
     check(isinstance(popt_map.A, torch.Tensor) and popt_map.A.is_cuda
           and isinstance(r2_map.A, torch.Tensor) and r2_map.A.is_cuda, "maps left the card")
     check(popt_map.shape == FIT_SHAPE + (4,) and r2_map.shape == FIT_SHAPE,
@@ -610,9 +740,10 @@ def phase_biexp(dt, dev, card):
     print(f"  plain version:   {plain_ms:.4f} ms runs {[round(t, 4) for t in plain_all]}")
     print(f"  CurveFitter(biexponential).fit (warm): {fit_ms:.4f} ms "
           f"({N / fit_ms * 1e3:.6g} voxels/s) runs {[round(t, 4) for t in fit_all]}")
+    b_ms, b_by = lm_bound(yT, 6, 40 * T + 80)
     return {"launches": counts["biexp_lm"], "max_abs_err": max(err, err_r2), "ms": kernel_ms,
-            "plain_ms": plain_ms, "fit_ms": fit_ms, "scipy_parity": parity,
-            "converged_fraction": conv_frac}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "fit_ms": fit_ms, "scipy_parity": parity, "converged_fraction": conv_frac}
 
 
 def phase_generic(dt, dev, card):
@@ -636,9 +767,7 @@ def phase_generic(dt, dev, card):
     popt, r2 = fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts = launch_counts()
-    check(counts == {"monoexp_lm": 0, "biexp_lm": 0, "generic_lm": 1},
-          f"the generic path launched {counts}, not generic_lm once")
+    counts = expect_launches("generic", generic_lm=1)
     check(popt.is_cuda and r2.is_cuda and tuple(popt.shape) == (N, 3), "curve_fit output")
     finite = float(torch.isfinite(popt).all(1).float().mean())
     b_err = (popt[:, 1] - torch.from_numpy(b_true).to(dev)).abs().nan_to_num(0)
@@ -688,9 +817,238 @@ def phase_generic(dt, dev, card):
           f"; lm_fit / kernel {lm_ms / kernel_ms:.4g}")
     print(f"  curve_fit (warm): {fit_ms:.4f} ms ({N / fit_ms * 1e3:.6g} voxels/s) "
           f"runs {[round(t, 4) for t in fit_all]}")
+    b_ms, b_by = lm_bound(yT, 5, 30 * T + 50)
     return {"launches": counts["generic_lm"], "max_abs_err": max(err, err_r2), "ms": kernel_ms,
-            "plain_ms": plain_ms, "lm_fit_ms": lm_ms, "fit_ms": fit_ms, "scipy_parity": parity,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "lm_fit_ms": lm_ms, "fit_ms": fit_ms, "scipy_parity": parity,
             "converged_fraction": conv_frac}
+
+
+# ----------------------------------------------------------------------
+# Phase 7: matrix registration at full width
+# ----------------------------------------------------------------------
+def registration_phantom():
+    """bench.py:650-659: a bright box plus noise; moving = fixed rolled."""
+    rs = np.random.RandomState(5)
+    s = REG_SHAPE
+    fixed = np.zeros(s, np.float32)
+    fixed[s[0] // 4: -s[0] // 4, s[1] // 4: -s[1] // 4, 4:-4] = 1000.0
+    fixed += 50.0 * rs.rand(*s).astype(np.float32)
+    moving = np.roll(fixed, REG_SHIFT, axis=(0, 1, 2))
+    return fixed, moving
+
+
+def corner_error_vox(M_est):
+    """Largest displacement error over the volume corners, in voxels of the
+    index grid: the estimated fixed → moving index map against the known
+    shift."""
+    A = REG_AFFINE
+    B_est = np.linalg.inv(A) @ np.asarray(M_est) @ A
+    corners = np.array([[i, j, k, 1.0] for i in (0, REG_SHAPE[0] - 1)
+                        for j in (0, REG_SHAPE[1] - 1) for k in (0, REG_SHAPE[2] - 1)]).T
+    want = corners[:3] + np.asarray(REG_SHIFT, np.float64)[:, None]
+    return float(np.linalg.norm((B_est @ corners)[:3] - want, axis=0).max())
+
+
+def plain_warp_of(stack, tdata, order):
+    """The plain version of the warp the registration path launched: the
+    sources prepared from ``stack`` (NB, ...) on the card, B built from the
+    written transform files as apply_warp builds it."""
+    from dosma_tpu_torch.ops.registration import (
+        _f32,
+        _world_matrix_to_index_map,
+        compose_transforms,
+    )
+    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid_reference
+
+    dev = torch.device("cuda", 0)
+    M = compose_transforms([np.asarray(t["matrix"]) for t in tdata])
+    M[3] = (0.0, 0.0, 0.0, 1.0)  # the composition's float64 round-off below 1e-16
+    B = _world_matrix_to_index_map(_f32(M, dev), _f32(tdata[0]["fixed_affine"], dev),
+                                   _f32(REG_AFFINE, dev))
+    srcs = prepare_sources(_f32(stack, dev), order)
+    out = warp_grid_reference(srcs, B, tuple(tdata[0]["fixed_shape"]), order)
+    torch.cuda.synchronize()
+    return out, tuple(srcs.shape)
+
+
+def phase_registration(dt, card):
+    from dosma_tpu_torch.core.registration import _load_transform_file
+    from dosma_tpu_torch.ops.registration import compose_transforms
+
+    fixed, moving = registration_phantom()
+    fv, mv = dt.MedicalVolume(fixed, REG_AFFINE), dt.MedicalVolume(moving, REG_AFFINE)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_reg_")
+    try:
+        def run():
+            return dt.register(fv, mv, "affine", output_path=out_dir, save_volumes=False,
+                               return_volumes=True)
+
+        t0 = time.perf_counter()
+        run()
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(3):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = expect_launches("register", warp_grid=1)
+        warped = res["volumes"][0].A
+        check(isinstance(warped, np.ndarray) and warped.shape == REG_SHAPE
+              and np.isfinite(warped).all(), "register: warped volume is not a finite host array")
+        tfile = res["outputs"][0].transform
+        tdata = [_load_transform_file(t) for t in tfile]
+        order = int(tdata[-1]["final_interp_order"])
+        M = compose_transforms([np.asarray(t["matrix"]) for t in tdata])
+        # The kernel's output against its plain version at the path's shapes.
+        ref, src_shape = plain_warp_of(moving[None], tdata, order)
+        got = torch.from_numpy(np.ascontiguousarray(warped)).to(ref.device)[None]
+        err_reg, equal_reg = compare_warp("register's warp", got, ref)
+        del got
+        del ref
+        print(f"compare warp_grid register order {order}: sources {src_shape} -> {REG_SHAPE} "
+              f"max|Δ|={err_reg:.3g} bit-equal={equal_reg}")
+        err = corner_error_vox(M)
+        s = REG_SHAPE
+        box = (slice(s[0] // 4, -s[0] // 4), slice(s[1] // 4, -s[1] // 4), slice(4, -4))
+        rmse_before = float(np.sqrt(np.mean((moving[box] - fixed[box]) ** 2)))
+        rmse_after = float(np.sqrt(np.mean((warped[box] - fixed[box]) ** 2)))
+        print(f"phase 7: register(affine) on {s}: first call {first_s:.4f} s, warm "
+              f"{[round(w, 4) for w in walls]} s (median {statistics.median(walls):.4f}); "
+              f"launches in one warm call {counts}; corner error {err:.4f} voxel; "
+              f"RMSE in the box {rmse_before:.4f} -> {rmse_after:.4f} "
+              f"({rmse_before / rmse_after:.3g}x)")
+        check(err < 0.5, f"registration recovery error {err} voxel")
+        check(rmse_before >= 4 * rmse_after, f"RMSE fell only {rmse_before / rmse_after:.3g}x")
+
+        vols4 = [moving * np.float32(1.0 + 0.1 * i) for i in range(4)]
+        stack = [dt.MedicalVolume(v, REG_AFFINE) for v in vols4]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warped4 = dt.apply_warp(stack, transform=tfile)
+        apply_s = time.perf_counter() - t0
+        apply_counts = expect_launches("apply_warp", warp_grid=1)
+        check(len(warped4) == 4, f"apply_warp returned {len(warped4)} volumes, not 4")
+        ref, src_shape = plain_warp_of(np.stack(vols4), tdata, order)
+        got = torch.from_numpy(np.stack([w.A for w in warped4])).to(ref.device)
+        err_apply, equal_apply = compare_warp("apply_warp's stacked warp", got, ref)
+        del got, ref
+        print(f"compare warp_grid apply_warp order {order}: sources {src_shape} -> {REG_SHAPE} "
+              f"max|Δ|={err_apply:.3g} bit-equal={equal_apply}")
+        print(f"phase 7: apply_warp of 4 volumes: {apply_s:.4f} s, launches {apply_counts}")
+        return {"launches": counts["warp_grid"], "apply_warp_launches": apply_counts["warp_grid"],
+                "max_abs_err": max(err_reg, err_apply),
+                "register_first_s": first_s, "register_warm_s": statistics.median(walls),
+                "recovery_error_vox": err, "rmse_before": rmse_before, "rmse_after": rmse_after}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phase 8: the warp kernel at a knee scan's size
+# ----------------------------------------------------------------------
+def warp_work(srcs_shape, out_shape, nb, order):
+    """(bytes, float32 operations) of one warp: each source read once, each
+    output written once; the operations the function needs per output point,
+    not the kernel's instruction mix. Both orders: 18 for the coordinate
+    (3 rows of 3 products and 3 sums). Order 1: 9 for the per-axis fraction
+    and its complement, 12 for the 8 corner weights, 16 a volume (8 products,
+    8 sums). Order 3: 45 for the 3x4 B-spline weights in closed form (15 an
+    axis), 80 for the 64 weight products (16 + 64), 128 a volume."""
+    npts = int(np.prod(out_shape))
+    nbytes = 4 * (int(np.prod(srcs_shape)) + nb * npts)
+    per_point = (39 + 16 * nb) if order == 1 else (143 + 128 * nb)
+    return nbytes, per_point * npts
+
+
+def grid_sample_call(vols, B, out_shape):
+    """F.grid_sample computing the order-1 warp (trilinear, zeros outside,
+    align_corners=True): the library yardstick, never used by the port.
+    Returns the call and its grid (normalized (x, y, z) = (k, j, i))."""
+    import torch.nn.functional as F
+
+    dev = vols.device
+    axes = [torch.arange(d, dtype=torch.float32, device=dev) for d in out_shape]
+    gi, gj, gk = torch.meshgrid(*axes, indexing="ij")
+    c = [B[a, 0] * gi + B[a, 1] * gj + B[a, 2] * gk + B[a, 3] for a in range(3)]
+    dims = vols.shape[1:]
+    grid = torch.stack([c[2] * (2.0 / (dims[2] - 1)) - 1.0, c[1] * (2.0 / (dims[1] - 1)) - 1.0,
+                        c[0] * (2.0 / (dims[0] - 1)) - 1.0], dim=-1)[None]
+    inp = vols[None]
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)[0]
+    return call
+
+
+def phase_warp(dev, card):
+    from dosma_tpu_torch.ops.registration import _world_matrix_to_index_map
+    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid, warp_grid_reference
+
+    M = np.array([[np.cos(WARP_ANGLE), -np.sin(WARP_ANGLE), 0, WARP_SHIFT[0]],
+                  [np.sin(WARP_ANGLE), np.cos(WARP_ANGLE), 0, WARP_SHIFT[1]],
+                  [0, 0, 1.0, WARP_SHIFT[2]], [0, 0, 0, 1.0]], np.float32)
+    A = torch.from_numpy(WARP_AFFINE.astype(np.float32)).to(dev)
+    B = _world_matrix_to_index_map(torch.from_numpy(M).to(dev), A, A)[:3].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vols = torch.rand((KNEE_VOLUMES,) + KNEE_SHAPE, generator=gen, device=dev)
+    out_shape = KNEE_SHAPE
+    res = {}
+    worst = 0.0
+    print(f"phase 8 on {card}, {KNEE_VOLUMES} x {KNEE_SHAPE} f32 (CUDA events, median of 5):")
+    for order in (1, 3):
+        srcs = prepare_sources(vols, order)
+        got = warp_grid(srcs, B, out_shape, order)
+        ref = warp_grid_reference(srcs, B, out_shape, order)
+        torch.cuda.synchronize()
+        err, equal = compare_warp(f"warp_grid knee order {order}", got, ref)
+        worst = max(worst, err)
+        del got, ref
+        kernel_ms, kernel_all = time_ms(lambda: warp_grid(srcs, B, out_shape, order))
+        plain_ms, plain_all = time_ms(lambda: warp_grid_reference(srcs, B, out_shape, order))
+        nbytes, flops = warp_work(tuple(srcs.shape), out_shape, KNEE_VOLUMES, order)
+        b_ms, b_by = bound(nbytes, flops)
+        entry = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "bytes": nbytes, "flops": flops, "max_abs_err": err, "bit_equal": equal}
+        line = (f"  order {order}: kernel {kernel_ms:.4f} ms runs {[round(t, 4) for t in kernel_all]}"
+                f"; plain {plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB, "
+                f"{nbytes / kernel_ms / 1e9:.4g} TB/s achieved; bound {b_ms:.4f} ms by {b_by} "
+                f"({b_ms / kernel_ms:.3g} of it); max|Δ| {err:.3g}, bit-equal {equal}")
+        if order == 3:
+            pre_ms, pre_all = time_ms(lambda: prepare_sources(vols, 3))
+            entry["prefilter_ms"] = pre_ms
+            line += f"; prefilter alone {pre_ms:.4f} ms"
+        else:
+            call = grid_sample_call(vols, B, out_shape)
+            gs = call()
+            ours = warp_grid(srcs, B, out_shape, 1)
+            gs_diff = float((gs - ours).abs().max())
+            del gs, ours
+            gs_ms, gs_all = time_ms(call)
+            entry["grid_sample_ms"] = gs_ms
+            entry["grid_sample_max_abs_diff"] = gs_diff
+            line += f"; F.grid_sample {gs_ms:.4f} ms (max |Δ| to the kernel {gs_diff:.3g})"
+            del call
+        del srcs
+        torch.cuda.empty_cache()
+        res[order] = entry
+        print(line)
+
+    # bench.py's warp row: one 192x192x48 volume, order 1.
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vol = torch.rand((1,) + REG_SHAPE, generator=gen, device=dev)
+    bench_ms, bench_all = time_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1))
+    n = int(np.prod(REG_SHAPE))
+    print(f"  bench size {REG_SHAPE}, one volume, order 1: {bench_ms:.4f} ms "
+          f"({n / bench_ms / 1e3:.4g} Mpts/s) runs {[round(t, 4) for t in bench_all]}")
+    res["bench_ms"] = bench_ms
+    res["max_abs_err"] = worst
+    return res
 
 
 def main(argv=None):
@@ -711,6 +1069,8 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     print(card)
     dev = torch.device("cuda", 0)
+    # TF32 off: float32 products (the registration's world coordinates and
+    # joint histograms) and convolutions run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -728,21 +1088,43 @@ def main(argv=None):
     biexp = phase_biexp(dt, dev, card)
     torch.cuda.empty_cache()
     generic = phase_generic(dt, dev, card)
+    torch.cuda.empty_cache()
     print(f"phases 4-6: {time.perf_counter() - t_start:.1f} s")
+    t_start = time.perf_counter()
+    reg = phase_registration(dt, card)
+    torch.cuda.empty_cache()
+    knee = phase_warp(dev, card)
+    print(f"phases 7-8: {time.perf_counter() - t_start:.1f} s")
+    # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
+    # same function: the library yardstick), order 3 beside it, the launches
+    # of one warm register call (phase 7).
+    o1, o3 = knee[1], knee[3]
+    warp = {"launches": reg["launches"], "max_abs_err": knee["max_abs_err"],
+            "ms": o1["ms"], "plain_ms": o1["plain_ms"], "bound_ms": o1["bound_ms"],
+            "bound_by": o1["bound_by"], "library_ms": o1["grid_sample_ms"],
+            "grid_sample_ms": o1["grid_sample_ms"], "shape": [KNEE_VOLUMES, *KNEE_SHAPE],
+            "order3": {k: o3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "prefilter_ms")},
+            "bench_192x192x48_order1_ms": knee["bench_ms"],
+            **{k: v for k, v in reg.items() if k not in ("launches", "max_abs_err")}}
+    warp["max_abs_err"] = max(warp["max_abs_err"], reg["max_abs_err"])
 
     sources = {
         "monoexp_lm": ("dosma_tpu_torch/csrc/monoexp_lm.cu", "dosma_tpu/ops/monoexp_pallas.py:92"),
         "biexp_lm": ("dosma_tpu_torch/csrc/biexp_lm.cu", "dosma_tpu/ops/biexp_pallas.py:83"),
         "generic_lm": ("dosma_tpu_torch/csrc/generic_lm.cuh",
                        "dosma_tpu/ops/generic_lm_pallas.py:52"),
+        "warp_grid": ("dosma_tpu_torch/csrc/warp_grid.cu", "dosma_tpu/ops/warp_pallas.py:116"),
     }
     kernels = []
-    for name, res in (("monoexp_lm", mono), ("biexp_lm", biexp), ("generic_lm", generic)):
+    for name, res in (("monoexp_lm", mono), ("biexp_lm", biexp), ("generic_lm", generic),
+                      ("warp_grid", warp)):
         source, replaces = sources[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": res["launches"],
                  "max_abs_err": max(res["max_abs_err"], worst[name]),
-                 "ms": res["ms"], "plain_ms": res["plain_ms"]}
+                 "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                 "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         entry.update({k: v for k, v in res.items() if k not in entry and k != "max_abs_err"})
         kernels.append(entry)
     print(card)

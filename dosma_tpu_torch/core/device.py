@@ -4,16 +4,32 @@ Counterpart of ``dosma_tpu/core/device.py``. A :class:`Device` is either the
 host CPU or one CUDA card, and maps one to one onto a ``torch.device``.
 Asking for a CUDA device on a machine without one raises: a device is never
 silently replaced by the CPU.
+
+The package's entry points compute host (numpy) data on the *default
+device*: the first CUDA card, unless the caller asks for another one with
+:func:`set_default_device` or, for a scope, :func:`default_device`
+(``with default_device("cpu"): ...``). A tensor that already lies on a
+device is computed there. On a machine with no card, asking for the default
+device without having asked for the CPU raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+import contextlib
+from typing import Any, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["Device", "cpu_device", "get_device", "to_device"]
+__all__ = [
+    "Device",
+    "cpu_device",
+    "get_device",
+    "to_device",
+    "get_default_device",
+    "set_default_device",
+    "default_device",
+]
 
 
 class Device:
@@ -87,6 +103,45 @@ class Device:
 
 
 cpu_device = Device(-1)
+
+_default_device: Optional[Device] = None  # None: the first CUDA card
+
+
+def get_default_device() -> Device:
+    """The device on which entry points compute host data.
+
+    The first CUDA card unless :func:`set_default_device` or
+    :func:`default_device` chose another; raises ``RuntimeError`` when no
+    card is available and the CPU was not asked for.
+    """
+    return Device("cuda") if _default_device is None else _default_device
+
+
+def set_default_device(device: Union[str, int, Device, torch.device, None]) -> None:
+    """Set the default device for host data; ``None`` restores the first card."""
+    global _default_device
+    _default_device = None if device is None else Device(device)
+
+
+@contextlib.contextmanager
+def default_device(device: Union[str, int, Device, torch.device]) -> Iterator[Device]:
+    """Scope in which host data is computed on ``device``."""
+    global _default_device
+    previous = _default_device
+    _default_device = Device(device)
+    try:
+        yield _default_device
+    finally:
+        _default_device = previous
+
+
+def compute_device(*arrays) -> torch.device:
+    """Where an entry point computes: the device of the first tensor among
+    ``arrays`` (the caller chose it), else the default device."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return get_default_device().ptdevice
 
 
 def get_device(array) -> Device:

@@ -1,12 +1,15 @@
 """Quantitative fitting: ``CurveFitter``, ``PolyFitter``, ``MonoExponentialFit``,
 ``curve_fit`` and ``polyfit``.
 
-Counterpart of ``dosma_tpu/core/fitting.py``. Fits run where the data is:
-volumes or tensors on a CUDA card are fit there (by a hand-written kernel
-or by plain torch), host data on the CPU by the plain PyTorch versions of
-the same algorithms. Data on a card is never moved to the host to be fit;
-only the per-sequence scipy loop (models that torch cannot differentiate,
-or scipy-only options) works on host copies, as in ``dosma_tpu``.
+Counterpart of ``dosma_tpu/core/fitting.py``. Tensors are fit where they
+lie: on a CUDA card by a hand-written kernel (or plain torch), on the CPU by
+the plain PyTorch versions of the same algorithms. Host (numpy) data is
+moved to the package's default device (the first CUDA card unless the
+caller asked for another, :mod:`dosma_tpu_torch.core.device`), fit there,
+and returned as host data. Data on a card is never moved to the host to be
+fit; only the per-sequence scipy loop (models that torch cannot
+differentiate, or scipy-only options) works on host copies, as in
+``dosma_tpu``.
 
 ``curve_fit`` routes by model:
 
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from dosma_tpu_torch import defaults
+from dosma_tpu_torch.core.device import compute_device
 from dosma_tpu_torch.core.med_volume import MedicalVolume
 from dosma_tpu_torch.defaults import preferences
 
@@ -294,10 +298,11 @@ class _Fitter:
 
 
     def fit(self, x, y: Sequence[MedicalVolume], mask=None, copy_headers: bool = True, **kwargs):
-        """Fit ``y`` volumes against ``x``; the maps lie on the volumes' device.
+        """Fit ``y`` volumes against ``x``.
 
-        Numpy-backed volumes give numpy-backed maps; tensor-backed volumes
-        give tensor-backed maps on the same device.
+        Numpy-backed volumes are fit on the default device and give
+        numpy-backed maps; tensor-backed volumes are fit on their device and
+        give tensor-backed maps there.
         """
         if not isinstance(y, (list, tuple)) or not all(isinstance(v, MedicalVolume) for v in y):
             raise TypeError("`y` must be sequence of MedicalVolumes.")
@@ -314,7 +319,7 @@ class _Fitter:
         ref = y[0]
         host = all(isinstance(v.volume, np.ndarray) for v in y)
 
-        svs = self._flatten_echoes(y)
+        svs = self._flatten_echoes(y).to(compute_device(*(v.volume for v in y)))
         n_total = svs.shape[-1]
         if mask is not None:
             mask = self._process_mask(mask, ref).volume.reshape(-1)
@@ -580,10 +585,11 @@ class MonoExponentialFit:
         self.verbose = verbose
 
     def fit(self, x=None, y: Sequence[MedicalVolume] = None, mask=None):
-        """Fit the echoes; returns ``(tc_map, r_squared)`` volumes on ``y``'s device.
+        """Fit the echoes; returns ``(tc_map, r_squared)`` volumes.
 
-        Host (numpy) volumes give numpy-backed maps; tensor volumes give
-        tensor-backed maps on the same device.
+        Host (numpy) volumes are fit on the default device and give
+        numpy-backed maps; tensor volumes are fit on their device and give
+        tensor-backed maps there.
         """
         from dosma_tpu_torch.ops.monoexp_pipeline import monoexp_fit_full
 
@@ -606,7 +612,9 @@ class MonoExponentialFit:
                 raise RuntimeError("`mask` and `y` dimension mismatch")
 
         shape = y[0].shape
-        yT = torch.stack([_flat_tensor(sv.volume) for sv in y], dim=0)
+        host = all(isinstance(sv.volume, np.ndarray) for sv in y)
+        yT = torch.stack([_flat_tensor(sv.volume) for sv in y], dim=0).to(
+            compute_device(*(sv.volume for sv in y)))
         tc_flat, r2_flat = monoexp_fit_full(
             np.asarray(x, np.float32), yT,
             bounds=self.bounds, tc0=self.tc0,
@@ -615,8 +623,8 @@ class MonoExponentialFit:
             mask_flat=None if mask is None else _flat_tensor(mask.volume),
         )
         tc_arr, r2_arr = tc_flat.reshape(shape), r2_flat.reshape(shape)
-        if all(isinstance(sv.volume, np.ndarray) for sv in y):
-            tc_arr, r2_arr = tc_arr.numpy(), r2_arr.numpy()
+        if host:
+            tc_arr, r2_arr = tc_arr.cpu().numpy(), r2_arr.cpu().numpy()
 
         headers = y[0].headers()
         headers = deepcopy(headers) if headers is not None else None
@@ -692,9 +700,9 @@ def curve_fit(
     """Nonlinear least-squares fit of ``func`` to N data sequences at once.
 
     ``y`` is (T, N), a numpy array or a tensor on any device; returns
-    ``(popts (N, P), r_squared (N,))`` as numpy arrays for numpy input and
-    as tensors on ``y``'s device for tensor input. Data on a card is fit on
-    the card, by a hand-written kernel or, for a model the generic kernel
+    ``(popts (N, P), r_squared (N,))`` as numpy arrays for numpy input (fit
+    on the default device) and as tensors on ``y``'s device for tensor
+    input. Data on a card is fit on the card, by a hand-written kernel or, for a model the generic kernel
     refuses, by :func:`dosma_tpu_torch.ops.nlls.lm_fit`. Functions that
     ``torch.func.jvp`` cannot differentiate, and scipy-only keyword
     arguments (``sigma``, parameter ``bounds``, ...), go to a per-sequence
@@ -722,7 +730,7 @@ def curve_fit(
 
     x = _host_x(x)
     like_numpy = not isinstance(y, torch.Tensor)
-    y = torch.from_numpy(np.asarray(y)) if like_numpy else y
+    y = torch.as_tensor(np.asarray(y) if like_numpy else y, device=compute_device(y))
     if y.ndim == 1:
         y = y.reshape(tuple(y.shape) + (1,))
     N = y.shape[-1]
@@ -884,7 +892,8 @@ def polyfit(
 
     ``y`` is (T, N), a numpy array or a tensor on any device. Returns
     ``(popts (N, deg+1) highest power first, r_squared (N,))``: numpy arrays
-    for numpy input, tensors on ``y``'s device for tensor input. The standard
+    for numpy input (fit on the default device), tensors on ``y``'s device
+    for tensor input. The standard
     path is one batched solve on ``y``'s device
     (:func:`dosma_tpu_torch.ops.nlls.batched_polyfit`); ``full``/``cov``/``w``
     go to ``np.polyfit`` on a host copy, and their extra outputs are numpy.
@@ -894,7 +903,7 @@ def polyfit(
 
     x = _host_x(x)
     like_numpy = not isinstance(y, torch.Tensor)
-    y = torch.from_numpy(np.asarray(y)) if like_numpy else y
+    y = torch.as_tensor(np.asarray(y) if like_numpy else y, device=compute_device(y))
     if y.ndim == 1:
         y = y.reshape(tuple(y.shape) + (1,))
     device = y.device

@@ -33,6 +33,17 @@ from jax.experimental.pallas import tpu as pltpu
 from dosma_tpu.ops.biexp_pallas import biexp_lm_pallas
 from dosma_tpu_torch.ops.biexp import biexp_lm, biexp_lm_reference
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _P0 = np.array([1.0, -0.5, 0.4, -0.04], np.float32)
 
 

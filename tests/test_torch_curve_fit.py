@@ -40,6 +40,17 @@ from dosma_tpu_torch.ops import generic_lm as tgeneric
 from dosma_tpu_torch.ops import monoexp as tmonoexp
 from dosma_tpu_torch.ops import nlls as tnlls
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _X4 = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
 _X8 = np.linspace(0.0, 10.0, 8).astype(np.float32)
 _P0M = (1.0, -1 / 30)

@@ -32,6 +32,17 @@ import dosma_tpu_torch
 from dosma_tpu.ops import monoexp_pallas
 from dosma_tpu_torch.ops.monoexp import monoexp_lm
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _X = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
 _SHAPE = (8, 8, 4)
 _LABELS = {1: "one", 2: "two"}
@@ -194,3 +205,22 @@ def test_default_host_options_do_not_warn():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         dosma_tpu_torch.MonoExponentialFit(num_workers=0, chunksize=1000, verbose=False)
+
+
+def test_host_data_without_a_card_or_a_cpu_request_raises(monkeypatch):
+    # Entry points compute host data on the default device, the first CUDA
+    # card; with none and no request for the CPU they raise, never fall back.
+    from dosma_tpu_torch.core import device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: host data is fit there")
+    monkeypatch.setattr(device, "_default_device", None)
+    affine = dosma_tpu_torch.to_affine(dosma_tpu_torch.SAGITTAL, spacing=(0.5, 0.5, 2.0))
+    ys = [dosma_tpu_torch.MedicalVolume(a, affine) for a in _echoes()]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dosma_tpu_torch.MonoExponentialFit(tc0="polyfit").fit(_X, ys)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dosma_tpu_torch.curve_fit(dosma_tpu_torch.monoexponential, _X, np.ones((4, 3), np.float32))
+    with device.default_device("cpu"):
+        tc, _ = dosma_tpu_torch.MonoExponentialFit(tc0="polyfit").fit(_X, ys)
+    assert isinstance(tc.A, np.ndarray) and tc.shape == _SHAPE

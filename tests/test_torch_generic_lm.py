@@ -46,6 +46,17 @@ from dosma_tpu_torch.ops import _build
 from dosma_tpu_torch.ops import generic_lm as G
 from dosma_tpu_torch.ops.nlls import _JvpSource
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _X5 = np.array([5.0, 15.0, 30.0, 50.0, 80.0], np.float32)
 
 # name -> (jax model_fn(x_col, params), torch f(x, *params), p0, true-parameter sampler)

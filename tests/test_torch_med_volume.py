@@ -9,6 +9,17 @@ import dosma_tpu
 import dosma_tpu_torch
 from dosma_tpu_torch.core.device import Device, get_device, to_device
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _ORIENTATIONS = [
     ("SI", "AP", "LR"),
     ("AP", "LR", "SI"),

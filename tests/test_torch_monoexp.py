@@ -29,6 +29,17 @@ from jax.experimental.pallas import tpu as pltpu
 from dosma_tpu.ops.monoexp_pallas import monoexp_lm_pallas
 from dosma_tpu_torch.ops.monoexp import monoexp_lm, monoexp_lm_reference
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _X4 = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
 _P0 = np.array([1.0, -1 / 30], np.float32)
 

@@ -37,6 +37,17 @@ import jax.numpy as jnp
 from dosma_tpu.ops import nlls as jnlls
 from dosma_tpu_torch.ops import nlls
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _X4 = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
 _X5 = np.array([5.0, 15.0, 30.0, 50.0, 80.0], np.float32)
 _X8 = np.linspace(0.0, 10.0, 8).astype(np.float32)

@@ -12,6 +12,17 @@ from pathlib import Path
 
 import pytest
 
+
+@pytest.fixture(autouse=True)
+def _compute_on_cpu():
+    """The port's entry points compute host data on the card by default;
+    these tests ask for the CPU."""
+    from dosma_tpu_torch.core.device import default_device
+
+    with default_device("cpu"):
+        yield
+
+
 _REPO = Path(__file__).resolve().parent.parent
 _PKG = _REPO / "dosma_tpu_torch"
 
@@ -29,7 +40,10 @@ def test_import_loads_no_jax_pandas_yaml():
     out = _run(
         "import sys, dosma_tpu_torch, dosma_tpu_torch.ops.monoexp, "
         "dosma_tpu_torch.ops.monoexp_pipeline, dosma_tpu_torch.ops.nlls, "
-        "dosma_tpu_torch.ops.biexp, dosma_tpu_torch.ops.generic_lm\n"
+        "dosma_tpu_torch.ops.biexp, dosma_tpu_torch.ops.generic_lm, "
+        "dosma_tpu_torch.ops.interp, dosma_tpu_torch.ops.warp, "
+        "dosma_tpu_torch.ops.registration, dosma_tpu_torch.core.registration, "
+        "dosma_tpu_torch.core.io.nifti_io, dosma_tpu_torch.utils.env\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu')))"
     )
