@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero):
   2. build every kernel from dosma_tpu_torch/csrc/, one nvcc process per
      source, all started together: monoexp_lm.cu, biexp_lm.cu,
      warp_grid.cu and the generic LM kernel generated for each model used
-     below; print the nvcc seconds and the ptxas register and spill counts;
+     below; print the nvcc seconds and the ptxas register
+     and spill counts (for warp_grid, each order's kernel);
   3. hold each kernel against its plain PyTorch version on the card at
      small shapes: edge cases (all-zero voxel, y_bounds, nan_policy="keep"
      with one iteration, N not a multiple of the block, per-voxel p0, a
@@ -22,8 +23,11 @@ Phases (any failure raises and exits non-zero):
      equal on >= 99.9% of voxels. The warp kernel, orders 1 and 3: identity,
      a rotation with a shift, a map partly outside the volume, an axis
      permutation, NB = 1, 3, 9, one matrix per group, output shapes that
-     differ from the source and are not multiples of 8; every voxel within
-     1e-5 * max(1, |v|) (bit equality is the aim, and reported);
+     differ from the source, cut tiles at the output's edges (no dim a
+     multiple of the tile, one point along an axis), a zoom-out by 3 (which
+     must take the gather branch) and a NaN matrix; each case prints the
+     branch its blocks take (ops/warp.py::warp_branches); every voxel within
+     1e-5 * max(1, |v|), identical NaN positions, bit equality required;
   4. monoexponential relaxometry (the first slice's main path): four
      512x512x64 echo volumes on the card (16.7M voxels, noisy data made
      from seed 0) through MonoExponentialFit(bounds=(0, 100),
@@ -61,7 +65,15 @@ Phases (any failure raises and exits non-zero):
      prefilter alone and, for order 1, F.grid_sample (the library yardstick,
      never used by the port) timed (CUDA events, median of 5); bytes,
      achieved bandwidth and the bound; the bench size 192x192x48, order 1,
-     one volume.
+     one volume, between two events and, from torch.profiler, the kernel
+     alone.
+Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
+max_iter on its path's data, which gives every voxel's latch iteration (its
+mean, p50, p99 and max, and the warp-divergence factor) and the bound's
+operation side (mean iterations x operations an iteration).
+Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
+the branch counts of ops/warp.py::warp_branches beside this run's, on the
+readable lines only.
 Each path (phases 4, 5, 6, 7) runs with every launch count set to 0 just
 before it and read just after. The last two lines are one JSON object
 with every kernel (its bound: the larger of the bytes it must move over
@@ -113,6 +125,15 @@ WARP_ANGLE, WARP_SHIFT = 0.07, (1.2, -0.7, 0.4)
 # float32 (non-tensor-core) rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+
+# The point-per-thread warp kernel that the staged one replaced, on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md's kernel table):
+# printed beside this run's times; never a pass or fail criterion.
+POINT_KERNEL_KNEE_MS = {1: 0.7873, 3: 2.3306}
+POINT_KERNEL_PREFILTER_MS = 43.8122
+POINT_KERNEL_BENCH_MS = 0.0859
+POINT_KERNEL_REGISTER_WARM_S = 4.1148
+POINT_KERNEL_APPLY_WARP_S = 0.0613
 
 
 def offset_exp(x, a, b, c):
@@ -217,6 +238,25 @@ def time_ms(fn, reps=5):
     return statistics.median(times), times
 
 
+def device_ms(fn, reps, name):
+    """Median duration on the card of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn`` (one such kernel a call), from
+    torch.profiler's trace: the kernel alone, which the wrapper's host work
+    between two events cannot reach."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    check(len(us) == reps, f"the profiler saw {len(us)} {name} kernels in {reps} calls")
+    return float(np.median(us)) / 1e3
+
+
 def _wrappers():
     from dosma_tpu_torch.ops.biexp import biexp_lm
     from dosma_tpu_torch.ops.generic_lm import generic_lm
@@ -250,13 +290,74 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lm_bound(yT, out_rows, flops_per_voxel):
+def lm_bound(yT, out_rows, flops_per_iteration, mean_iterations):
     """Bound of an LM kernel: y read once, the packed rows written once; the
-    operation side counts one LM iteration a voxel (iteration counts are not
-    measured, so this is a lower bound of the work)."""
+    operations of the LM iterations these data need (their measured mean a
+    voxel, see latch_iterations)."""
     T, N = yT.shape
     nbytes = T * N * 4 + out_rows * N * 4
-    return bound(nbytes, flops_per_voxel * N)
+    return bound(nbytes, flops_per_iteration * mean_iterations * N)
+
+
+def latch_iterations(packed, max_iter):
+    """Each voxel's latch iteration, from the kernel run at max_iter = 1 ..
+    max_iter: every voxel freezes at its latch, so "converged with max_iter =
+    k" is "latched by iteration k", and a voxel that latches at iteration L
+    is converged in max_iter + 1 - L of the runs. A voxel converged in none
+    (it never latched, or its seed or result is not finite) counts max_iter.
+    ``packed(k)`` returns the packed rows, the converged flags last."""
+    runs = None
+    for k in range(1, max_iter + 1):
+        conv = packed(k)[-1]
+        runs = conv.clone() if runs is None else runs + conv
+    return torch.clamp(max_iter + 1 - runs, max=max_iter).to(torch.int64)
+
+
+def refill_factor(L, lanes):
+    """Lane passes over useful passes of a kernel whose lanes each take the
+    next voxel as soon as theirs latches (generic_lm.cuh), modelled on
+    ``lanes`` lanes in lockstep: a voxel holds its lane max(L, 1) passes and
+    a warp runs until its last lane is done."""
+    cost = np.maximum(L.cpu().numpy(), 1)
+    n = cost.size
+    busy = cost[:lanes].copy()
+    ptr = busy.size
+    while ptr < n:
+        idle = np.flatnonzero(busy == busy.min())[: n - ptr]
+        busy[idle] += cost[ptr:ptr + idle.size]
+        ptr += idle.size
+    pad = (-busy.size) % 32
+    warp_passes = np.concatenate([busy, np.zeros(pad, busy.dtype)]).reshape(-1, 32).max(1)
+    return float(warp_passes.sum() * 32 / cost.sum())
+
+
+def iteration_report(name, L, max_iter, refill=False):
+    """Mean, p50, p99 and max of the latch iterations, and the warp-divergence
+    factor: the mean over warps of the largest latch iteration among 32
+    consecutive voxels, over the mean latch iteration (a warp of a
+    one-voxel-a-thread kernel runs as long as its slowest voxel). With
+    ``refill``, also prints the factor modelled for lane refill on every
+    SM's most resident threads (2048), which overstates the tail; a host
+    model, so it stays out of the returned numbers."""
+    N = L.numel()
+    counts = torch.bincount(L, minlength=max_iter + 1).cpu().numpy()
+    cdf = np.cumsum(counts) / N
+    mean = float(L.double().mean())
+    pad = (-N) % 32
+    warp_max = torch.cat([L, L.new_zeros(pad)]).reshape(-1, 32).amax(1).double()
+    rep = {"mean": mean, "p50": int(np.searchsorted(cdf, 0.5)),
+           "p99": int(np.searchsorted(cdf, 0.99)), "max": int(L.max()),
+           "at_max_iter": int(counts[max_iter]),
+           "warp_divergence_factor": float(warp_max.mean()) / mean}
+    modelled = ""
+    if refill:
+        lanes = torch.cuda.get_device_properties(0).multi_processor_count * 2048
+        modelled = f"; with lane refill (modelled) {refill_factor(L, lanes):.4f}"
+    print(f"latch iterations {name} (max_iter 1..{max_iter}, {max_iter} launches): mean "
+          f"{rep['mean']:.4f} p50 {rep['p50']} p99 {rep['p99']} max {rep['max']}; voxels at "
+          f"max_iter {rep['at_max_iter']}; warp-divergence factor "
+          f"{rep['warp_divergence_factor']:.4f}{modelled}")
+    return rep
 
 
 def scipy_parity(name, model_np, x, Y, popt_flat, idx, p0):
@@ -303,6 +404,10 @@ def build_all():
         print(f"  {name}: nvcc {lib.build_seconds:.2f} s; ptxas: {len(regs)} kernels, "
               f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill bytes {sum(spills)}")
+        if name == "warp_grid.cu":  # one kernel per order
+            for order, used in re.findall(r"warp_tilesILi(\d)E.*?Used (\d+) registers", log,
+                                          flags=re.S):
+                print(f"    warp_tiles<{order}>: {used} registers")
         for line in log.splitlines():
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and (int(m.group(1)) or int(m.group(2))):
@@ -434,6 +539,19 @@ def warp_small_cases():
         ("one_matrix_per_group", 4, (33, 29, 17), (31, 35, 13),
          np.stack([rotation_B((33, 29, 17), 5, (0.5, 0, 0)), rotation_B((33, 29, 17), -3, (0, 0.7, 0.2))])),
         ("nb4_bench_like", 4, (64, 60, 24), (64, 60, 24), rotation_B((64, 60, 24), 4, (1.2, -0.7, 0.4))),
+        # Tiles cut by the output's edges: no output dim a multiple of the
+        # tile (16x16x32 or 8x16x32), and outputs of one point along an axis.
+        ("tile_edges", 2, (21, 19, 37), (17, 35, 33), rotation_B((21, 19, 37), 2, (0.3, -0.4, 0.2))),
+        ("one_point_along_i", 1, (12, 20, 40), (1, 20, 40), rotation_B((12, 20, 40), 3, (2.0, 0.5, -0.3))),
+        ("one_point_along_k", 3, (20, 20, 5), (20, 20, 1), rotation_B((20, 20, 5), -4, (0.1, 0.6, 1.7))),
+        # A zoom-out by 3: the boxes of the tiles inside the volume overflow
+        # the staging buffer, so those blocks gather.
+        ("zoom_out_3", 2, (40, 44, 72), (40, 44, 72), rotation_B((40, 44, 72), 3, (0.4, -0.2, 0.3), 3.0)),
+        ("nan_matrix", 1, (10, 10, 10), (9, 9, 9), np.full((3, 4), np.nan, np.float32)),
+        # A small output well inside a larger source: the order-1 boxes lie
+        # inside the volume, so those blocks take the unmasked taps.
+        ("inside_the_source", 3, (40, 44, 72), (20, 22, 36),
+         rotation_B((40, 44, 72), 2, (10.0, 11.0, 18.0))),
     ]
 
 
@@ -450,8 +568,13 @@ def compare_warp(name, got, ref):
 
 
 def warp_small(dev):
-    """Phase 3, warp kernel: each case and order against the plain version."""
-    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid, warp_grid_reference
+    """Phase 3, warp kernel: each case and order against the plain version,
+    with the branch its blocks take (staged box or gather, named by
+    warp_branches); every case must agree bit for bit; the zoom-out must
+    gather."""
+    from dosma_tpu_torch.ops.warp import (
+        prepare_sources, warp_branches, warp_grid, warp_grid_reference,
+    )
 
     worst, n_equal, n_cases = 0.0, 0, 0
     rs = np.random.RandomState(4)
@@ -465,11 +588,17 @@ def warp_small(dev):
             ref = warp_grid_reference(srcs, Bt, out_shape, order)
             torch.cuda.synchronize()
             err, equal = compare_warp(f"warp_grid {name} order {order}", got, ref)
+            check(equal, f"warp_grid differs from its plain version: {name} order {order}")
+            br = warp_branches(B, srcs.shape[1:], out_shape, order)
+            if name == "zoom_out_3":
+                check(br["gather"] > 0, f"zoom_out_3 order {order} took no gather branch: {br}")
             worst = max(worst, err)
             n_equal += equal
             n_cases += 1
             print(f"compare warp_grid {name} order {order}: NB={nb} {src_shape} -> {out_shape} "
-                  f"max|Δ|={err:.3g} bit-equal={equal}")
+                  f"blocks staged {br['staged']} gather {br['gather']} "
+                  f"(read amplification {br['read_amplification']:.3g}); max|Δ|={err:.3g} "
+                  f"bit-equal={equal}")
     print(f"warp_grid small cases: {n_equal} of {n_cases} bit-equal, worst |Δ| {worst:.3g}")
     return worst
 
@@ -643,10 +772,12 @@ def phase_monoexp(dt, dev, card):
     print(f"  MonoExponentialFit.fit (warm): {fit_ms:.4f} ms ({N / fit_ms * 1e3:.6g} voxels/s) "
           f"runs {[round(t, 4) for t in fit_all]}")
     print(f"  T2.metric_rows (warm): {metrics_ms:.4f} ms runs {[round(t, 4) for t in metrics_all]}")
-    b_ms, b_by = lm_bound(yT, 4, 20 * T + 40)
+    iters = iteration_report("monoexp_lm", latch_iterations(
+        lambda k: _packed_kernel(x_dev, yT, None, k, 1e-5, 1e-5, True), 100), 100)
+    b_ms, b_by = lm_bound(yT, 4, 20 * T + 40, iters["mean"])
     return {"launches": launches, "max_abs_err": max(max_err, max_err_r2),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "iterations": iters}
 
 
 # ----------------------------------------------------------------------
@@ -740,8 +871,11 @@ def phase_biexp(dt, dev, card):
     print(f"  plain version:   {plain_ms:.4f} ms runs {[round(t, 4) for t in plain_all]}")
     print(f"  CurveFitter(biexponential).fit (warm): {fit_ms:.4f} ms "
           f"({N / fit_ms * 1e3:.6g} voxels/s) runs {[round(t, 4) for t in fit_all]}")
-    b_ms, b_by = lm_bound(yT, 6, 40 * T + 80)
-    return {"launches": counts["biexp_lm"], "max_abs_err": max(err, err_r2), "ms": kernel_ms,
+    iters = iteration_report("biexp_lm", latch_iterations(
+        lambda k: _packed_kernel(x_dev, yT, p0_dev, k, 1e-5, 1e-5), 100), 100)
+    b_ms, b_by = lm_bound(yT, 6, 40 * T + 80, iters["mean"])
+    return {"launches": counts["biexp_lm"], "iterations": iters,
+            "max_abs_err": max(err, err_r2), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "fit_ms": fit_ms, "scipy_parity": parity, "converged_fraction": conv_frac}
 
@@ -817,8 +951,11 @@ def phase_generic(dt, dev, card):
           f"; lm_fit / kernel {lm_ms / kernel_ms:.4g}")
     print(f"  curve_fit (warm): {fit_ms:.4f} ms ({N / fit_ms * 1e3:.6g} voxels/s) "
           f"runs {[round(t, 4) for t in fit_all]}")
-    b_ms, b_by = lm_bound(yT, 5, 30 * T + 50)
-    return {"launches": counts["generic_lm"], "max_abs_err": max(err, err_r2), "ms": kernel_ms,
+    iters = iteration_report("generic_lm", latch_iterations(
+        lambda k: _packed_kernel(program, x_dev, yT, p0_dev, k, 1e-5, 1e-5), 60), 60, refill=True)
+    b_ms, b_by = lm_bound(yT, 5, 30 * T + 50, iters["mean"])
+    return {"launches": counts["generic_lm"], "iterations": iters,
+            "max_abs_err": max(err, err_r2), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "lm_fit_ms": lm_ms, "fit_ms": fit_ms, "scipy_parity": parity,
             "converged_fraction": conv_frac}
@@ -939,7 +1076,10 @@ def phase_registration(dt, card):
         del got, ref
         print(f"compare warp_grid apply_warp order {order}: sources {src_shape} -> {REG_SHAPE} "
               f"max|Δ|={err_apply:.3g} bit-equal={equal_apply}")
-        print(f"phase 7: apply_warp of 4 volumes: {apply_s:.4f} s, launches {apply_counts}")
+        print(f"phase 7: apply_warp of 4 volumes: {apply_s:.4f} s "
+              f"(point kernel: {POINT_KERNEL_APPLY_WARP_S} s), "
+              f"launches {apply_counts}; warm register median {statistics.median(walls):.4f} s "
+              f"(point kernel: {POINT_KERNEL_REGISTER_WARM_S} s)")
         return {"launches": counts["warp_grid"], "apply_warp_launches": apply_counts["warp_grid"],
                 "max_abs_err": max(err_reg, err_apply),
                 "register_first_s": first_s, "register_warm_s": statistics.median(walls),
@@ -957,11 +1097,14 @@ def warp_work(srcs_shape, out_shape, nb, order):
     not the kernel's instruction mix. Both orders: 18 for the coordinate
     (3 rows of 3 products and 3 sums). Order 1: 9 for the per-axis fraction
     and its complement, 12 for the 8 corner weights, 16 a volume (8 products,
-    8 sums). Order 3: 45 for the 3x4 B-spline weights in closed form (15 an
-    axis), 80 for the 64 weight products (16 + 64), 128 a volume."""
+    8 sums). Order 3, summed separably: 45 for the 3x4 B-spline weights in
+    closed form (15 an axis), then a volume 147: 16 rows of 4 taps along k
+    (4 products, 3 sums each: 112), 4 along j (28), 1 along i (7). At 4
+    volumes that is 651 a point (the 64-weight form counted 143 + 128 a
+    volume, 655)."""
     npts = int(np.prod(out_shape))
     nbytes = 4 * (int(np.prod(srcs_shape)) + nb * npts)
-    per_point = (39 + 16 * nb) if order == 1 else (143 + 128 * nb)
+    per_point = (39 + 16 * nb) if order == 1 else (63 + 147 * nb)
     return nbytes, per_point * npts
 
 
@@ -988,7 +1131,9 @@ def grid_sample_call(vols, B, out_shape):
 
 def phase_warp(dev, card):
     from dosma_tpu_torch.ops.registration import _world_matrix_to_index_map
-    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid, warp_grid_reference
+    from dosma_tpu_torch.ops.warp import (
+        prepare_sources, warp_branches, warp_grid, warp_grid_reference,
+    )
 
     M = np.array([[np.cos(WARP_ANGLE), -np.sin(WARP_ANGLE), 0, WARP_SHIFT[0]],
                   [np.sin(WARP_ANGLE), np.cos(WARP_ANGLE), 0, WARP_SHIFT[1]],
@@ -1009,6 +1154,8 @@ def phase_warp(dev, card):
         err, equal = compare_warp(f"warp_grid knee order {order}", got, ref)
         worst = max(worst, err)
         del got, ref
+        check(equal, f"warp_grid differs from its plain version at the knee size, order {order}")
+        br = warp_branches(B.cpu().numpy(), srcs.shape[1:], out_shape, order)  # a host model
         kernel_ms, kernel_all = time_ms(lambda: warp_grid(srcs, B, out_shape, order))
         plain_ms, plain_all = time_ms(lambda: warp_grid_reference(srcs, B, out_shape, order))
         nbytes, flops = warp_work(tuple(srcs.shape), out_shape, KNEE_VOLUMES, order)
@@ -1016,13 +1163,18 @@ def phase_warp(dev, card):
         entry = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "bytes": nbytes, "flops": flops, "max_abs_err": err, "bit_equal": equal}
         line = (f"  order {order}: kernel {kernel_ms:.4f} ms runs {[round(t, 4) for t in kernel_all]}"
-                f"; plain {plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB, "
-                f"{nbytes / kernel_ms / 1e9:.4g} TB/s achieved; bound {b_ms:.4f} ms by {b_by} "
-                f"({b_ms / kernel_ms:.3g} of it); max|Δ| {err:.3g}, bit-equal {equal}")
+                f" (the point kernel: {POINT_KERNEL_KNEE_MS[order]} ms); plain "
+                f"{plain_ms:.4f} ms; "
+                f"{nbytes / 1e6:.1f} MB, {nbytes / kernel_ms / 1e9:.4g} TB/s achieved; bound "
+                f"{b_ms:.4f} ms by {b_by} ({b_ms / kernel_ms:.3g} of it); warp_branches: blocks "
+                f"staged {br['staged']} gather {br['gather']}, read amplification "
+                f"{br['read_amplification']:.4g}, {br['volumes_per_buffer']} volumes a buffer; "
+                f"max|Δ| {err:.3g}, bit-equal {equal}")
         if order == 3:
             pre_ms, pre_all = time_ms(lambda: prepare_sources(vols, 3))
             entry["prefilter_ms"] = pre_ms
-            line += f"; prefilter alone {pre_ms:.4f} ms"
+            line += (f"; prefilter alone {pre_ms:.4f} ms "
+                     f"(point kernel: {POINT_KERNEL_PREFILTER_MS} ms)")
         else:
             call = grid_sample_call(vols, B, out_shape)
             gs = call()
@@ -1043,10 +1195,14 @@ def phase_warp(dev, card):
     gen = torch.Generator(device=dev).manual_seed(3)
     vol = torch.rand((1,) + REG_SHAPE, generator=gen, device=dev)
     bench_ms, bench_all = time_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1))
+    bench_kernel_ms = device_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1), 21, "warp")
     n = int(np.prod(REG_SHAPE))
-    print(f"  bench size {REG_SHAPE}, one volume, order 1: {bench_ms:.4f} ms "
-          f"({n / bench_ms / 1e3:.4g} Mpts/s) runs {[round(t, 4) for t in bench_all]}")
+    print(f"  bench size {REG_SHAPE}, one volume, order 1: {bench_ms:.4f} ms between two "
+          f"events, the wrapper's host work included (point kernel: {POINT_KERNEL_BENCH_MS} "
+          f"ms) runs {[round(t, 4) for t in bench_all]}; the kernel alone {bench_kernel_ms:.4f} "
+          f"ms ({n / bench_kernel_ms / 1e3:.4g} Mpts/s; profiler, median of 21)")
     res["bench_ms"] = bench_ms
+    res["bench_kernel_ms"] = bench_kernel_ms
     res["max_abs_err"] = worst
     return res
 
@@ -1106,6 +1262,7 @@ def main(argv=None):
             "order3": {k: o3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "prefilter_ms")},
             "bench_192x192x48_order1_ms": knee["bench_ms"],
+            "bench_192x192x48_order1_kernel_ms": knee["bench_kernel_ms"],
             **{k: v for k, v in reg.items() if k not in ("launches", "max_abs_err")}}
     warp["max_abs_err"] = max(warp["max_abs_err"], reg["max_abs_err"])
 

@@ -28,6 +28,7 @@ struct Voxel {
   float xs[TT > 0 ? TT : 1];
   float ys[TT > 0 ? TT : 1];
 
+  Voxel() = default;  // a lane's slot before its first voxel (generic_lm.cuh)
   __device__ __forceinline__ Voxel(const float* x, const float* y, long long stride, int t_rt)
       : xg(x), yg(y), st(stride), T(TT > 0 ? TT : t_rt) {
     if constexpr (TT > 0) {

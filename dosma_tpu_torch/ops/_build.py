@@ -104,8 +104,8 @@ def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
     the library as ``<name>-<hash>.log``; ``load_library(name).build_seconds``
     is the compile time (0 when an existing build was loaded). ``fmad=True``
     builds a second library with fused multiply-adds, which only
-    ``tools/profile_monoexp_fit.py`` loads, to measure what ``-fmad=false``
-    costs.
+    ``tools/profile_monoexp_fit.py`` and ``tools/compare_kernels.py --fma``
+    load, to measure what ``-fmad=false`` costs.
     """
     flags = _nvcc_flags(fmad)
     src = _CSRC / f"{name}.cu"

@@ -186,9 +186,10 @@ def _cuda_source(program: ModelProgram) -> str:
         'extern "C" int dosma_generic_lm(const float* x, const float* y, long long y_st,',
         "                                long long y_sn, const float* p0, long long p0_sp,",
         "                                long long p0_sn, float* out, long long N, int T,",
-        "                                int max_iter, float ftol, float xtol, void* stream) {",
+        "                                int max_iter, float ftol, float xtol,",
+        "                                unsigned long long* next, void* stream) {",
         "  return dosma::generic_lm_launch<Model>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T,",
-        "                                         max_iter, ftol, xtol, stream);",
+        "                                         max_iter, ftol, xtol, next, stream);",
         "}",
         "",
     ]
@@ -396,16 +397,19 @@ def _kernel_fn(program: ModelProgram):
     fn = build_kernel(program).dosma_generic_lm
     if fn.argtypes is None:
         vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, ll, ci, ci, cf, cf, vp]
+        fn.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, ll, ci, ci, cf, cf, vp, vp]
         fn.restype = ci
     return fn
 
 
 def _packed_kernel(program, x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
-    """Launch the program's kernel on the current stream: packed (P + 2, N)."""
+    """Launch the program's kernel on the current stream: packed (P + 2, N).
+    ``next_voxel`` is the kernel's refill counter, a workspace of its own
+    for each launch (the launch zeroes it on the stream)."""
     T, N = yT.shape
     P = program.nparams
     out = torch.empty((P + 2, N), dtype=torch.float32, device=yT.device)
+    next_voxel = torch.empty(1, dtype=torch.int64, device=yT.device)
     fn = _kernel_fn(program)
     if p0.ndim == 1:
         p0_sp, p0_sn = p0.stride(0), 0
@@ -417,7 +421,7 @@ def _packed_kernel(program, x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
         err = fn(
             x.data_ptr(), yT.data_ptr(), yT.stride(0), yT.stride(1),
             p0.data_ptr(), p0_sp, p0_sn, out.data_ptr(), N, T,
-            int(max_iter), float(ftol), float(xtol), stream,
+            int(max_iter), float(ftol), float(xtol), next_voxel.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(

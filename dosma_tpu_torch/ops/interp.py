@@ -148,7 +148,9 @@ def _cubic_weights4(t: torch.Tensor, six: torch.Tensor):
 def _cubic_gather(cp: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """64 gathers a point from padded coefficients ``cp`` at clipped
     coordinates ``c`` (3, N): taps ``floor + 1 + a`` of the padded axes,
-    summed a-major, weights ``(w0[a] * w1[b]) * w2[d]``."""
+    summed axis by axis in the order of the CUDA warp kernel:
+    ``r_ab = sum_d w2[d] * tap``, then ``q_a = sum_b w1[b] * r_ab``, then
+    ``sum_a w0[a] * q_a``, each sum left to right."""
     P0, P1, P2 = cp.shape
     flat = cp.reshape(-1)
     six = torch.full((), 6.0, dtype=c.dtype, device=c.device)
@@ -156,13 +158,16 @@ def _cubic_gather(cp: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     fr = c - fl
     base = fl.to(torch.int64) + 1
     w0, w1, w2 = (_cubic_weights4(fr[i], six) for i in range(3))
-    out = torch.zeros(c.shape[1], dtype=cp.dtype, device=cp.device)
+    out = None
     for a in range(4):
+        q = None
         for b in range(4):
             row = ((base[0] + a) * P1 + (base[1] + b)) * P2 + base[2]
-            w01 = w0[a] * w1[b]
-            for d in range(4):
-                out = out + (w01 * w2[d]) * torch.take(flat, row + d)
+            r = w2[0] * torch.take(flat, row)
+            for d in range(1, 4):
+                r = r + w2[d] * torch.take(flat, row + d)
+            q = w1[b] * r if q is None else q + w1[b] * r
+        out = w0[a] * q if out is None else out + w0[a] * q
     return out
 
 

@@ -18,11 +18,25 @@ CUDA tensors (a build or launch failure raises) and computes
 CPU tensors. Unlike the TPU kernel there is no limit of 8 volumes, no
 transform-span gate and no tiling constraint on the output shape: any B and
 any shape go to the kernel.
+
+The kernel gives each block one output tile and stages the tile's source
+footprint (its "box") in shared memory, as many volumes at once as fit,
+computing each point's taps once for all of them; a block whose
+box does not fit (zoom, strong shear, a non-finite B) gathers from device
+memory instead. The block decides on the card; :func:`warp_branches`
+repeats the decision on the host, in the same float32 arithmetic, to name
+the branch each tile takes. Kernel and plain version compute every
+coordinate, weight and sum with the same operations in the same order, and
+the kernel is built without FMA contraction, so the two agree bit for bit.
+(Contraction would move a cubic sum that cancels coefficients of ~1e3 to a
+value near 0 by up to ~4e-4, beyond the 1e-5 * max(1, |v|) the port holds
+its kernels to.)
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import numpy as np
@@ -37,9 +51,20 @@ from dosma_tpu_torch.ops.interp import (
     cubic_coeffs_batch,
 )
 
-__all__ = ["warp_grid", "warp_grid_reference", "warp_grid_batched", "prepare_sources"]
+__all__ = ["warp_grid", "warp_grid_reference", "warp_grid_batched", "prepare_sources",
+           "warp_branches"]
 
 _POINT_CHUNK = 1 << 20  # grid points per pass of the plain version
+
+# The kernel's tiling (csrc/warp_grid.cu; keep the two in step): output
+# points a tile per order, floats a staging buffer holds, the margin added
+# around the tile corners' coordinates, and the largest partial sum of a
+# coordinate for which that margin covers the rounding.
+_TILE = {1: (8, 16, 32), 3: (8, 8, 32)}
+_BOX_CAP = 14336
+_BOX_MARGIN = np.float32(1.0 / 64.0)
+_COORD_LIMIT = np.float32(32768.0)
+_MAX_ELEMS = 2 ** 31 - 1  # one volume is indexed with 32-bit integers
 
 
 def prepare_sources(vols: torch.Tensor, order: int) -> torch.Tensor:
@@ -70,6 +95,84 @@ def _groups_of(B: torch.Tensor, nb: int) -> torch.Tensor:
 def _in_domain_hi(dims) -> list:
     """Order 3's inclusive upper limits (D-1) + 1e-3, rounded to float32."""
     return [float(np.float32((d - 1) + 1e-3)) for d in dims]
+
+
+def _tile_starts(n: int, t: int):
+    lo = np.arange(0, n, t)
+    return lo, np.minimum(lo + t, n) - 1
+
+
+def warp_branches(B, src_shape: Sequence[int], out_shape: Sequence[int], order: int) -> dict:
+    """The branch each block of the kernel takes, decided as the kernel
+    decides it, in float32 on the host.
+
+    ``B``: as :func:`warp_grid` takes it; ``src_shape``: the prepared
+    sources' spatial shape (order 3: padded). A block maps its tile's 8
+    corners through its group's B, widens the range of each moving
+    coordinate by ``_BOX_MARGIN`` and by the taps (order 1: floor .. floor
+    + 1, clipped to the volume; order 3: the clipped coordinate's floor - 1
+    .. floor + 2), and stages that box if every corner is finite, every
+    partial sum of a coordinate stays below ``_COORD_LIMIT`` and the box
+    holds at most ``_BOX_CAP`` floats; otherwise it gathers.
+
+    Returns ``{"staged": blocks, "gather": blocks, "box_max": the largest
+    staged box in floats, "read_amplification": staged box floats over the
+    staged tiles' points, "volumes_per_buffer": the volumes a buffer holds
+    for the largest box}``, summed over the groups.
+    """
+    B = np.asarray(B, np.float32)
+    B = (B[None] if B.ndim == 2 else B)[:, :3, :4]
+    ti, tj, tk = _TILE[order]
+    pad = 2 * _PAD if order == 3 else 0
+    dims = [int(s) - pad for s in src_shape]
+    o = [int(s) for s in out_shape]
+    (i0, i1), (j0, j1), (k0, k1) = (_tile_starts(n, t) for n, t in zip(o, (ti, tj, tk)))
+    fi = np.stack([i0, i1]).astype(np.float32)[:, :, None, None, None, None]
+    fj = np.stack([j0, j1]).astype(np.float32)[None, None, :, :, None, None]
+    fk = np.stack([k0, k1]).astype(np.float32)[None, None, None, None, :, :]
+    points = ((i1 - i0 + 1)[:, None, None] * (j1 - j0 + 1)[None, :, None]
+              * (k1 - k0 + 1)[None, None, :]).astype(np.int64)
+    extent = np.array([n - 1 for n in o], np.float32)
+    res = {"staged": 0, "gather": 0, "box_max": 0, "box_elems": 0, "points": 0}
+    with np.errstate(invalid="ignore", over="ignore"):
+        for b in B:
+            finite = np.ones(points.shape, bool)
+            box = np.ones(points.shape, np.int64)
+            fits = np.ones(points.shape, bool)
+            ab = np.abs(b)
+            limit_ok = True
+            for a in range(3):
+                lim = ((ab[a, 0] * extent[0] + ab[a, 1] * extent[1])
+                       + ab[a, 2] * extent[2]) + ab[a, 3]
+                limit_ok = limit_ok and bool(lim < _COORD_LIMIT)
+                c = ((b[a, 0] * fi + b[a, 1] * fj) + b[a, 2] * fk) + b[a, 3]
+                finite &= np.isfinite(c).all(axis=(0, 2, 4))
+                cmin, cmax = c.min(axis=(0, 2, 4)), c.max(axis=(0, 2, 4))
+                top = np.float32(dims[a] - 1)
+                if order == 3:
+                    cmin = np.minimum(np.maximum(cmin, np.float32(0)), top)
+                    cmax = np.minimum(np.maximum(cmax, np.float32(0)), top)
+                    lo = np.floor(cmin - _BOX_MARGIN) + 1
+                    hi = np.floor(cmax + _BOX_MARGIN) + 4
+                else:
+                    lo = np.maximum(np.floor(cmin - _BOX_MARGIN), 0)
+                    hi = np.minimum(np.floor(cmax + _BOX_MARGIN) + 1, top)
+                n = np.clip(np.nan_to_num(hi - lo + 1, nan=0.0, posinf=0.0, neginf=0.0),
+                            0, _BOX_CAP + 1).astype(np.int64)
+                fits &= n <= _BOX_CAP
+                box *= n
+            staged = finite & limit_ok & fits & (box <= _BOX_CAP)
+            res["staged"] += int(staged.sum())
+            res["gather"] += int((~staged).sum())
+            if staged.any():
+                res["box_max"] = max(res["box_max"], int(box[staged].max()))
+                res["box_elems"] += int(box[staged].sum())
+                res["points"] += int(points[staged].sum())
+    elems, points = res.pop("box_elems"), res.pop("points")
+    res["read_amplification"] = elems / points if points else 0.0
+    # the fewest volumes a staging buffer holds for a staged block
+    res["volumes_per_buffer"] = _BOX_CAP // res["box_max"] if res["box_max"] else 0
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -134,6 +237,10 @@ def _launch(srcs: torch.Tensor, B: torch.Tensor, out_shape, order: int) -> torch
     nb = int(srcs.shape[0])
     B = _groups_of(B.to(srcs.device), nb).contiguous()
     srcs = srcs.contiguous()
+    for what, shape in (("source", srcs.shape[1:]), ("output", out_shape)):
+        if math.prod(shape) > _MAX_ELEMS:
+            raise ValueError(f"warp_grid indexes a volume with 32-bit integers; the {what} "
+                             f"volume {tuple(shape)} has more than {_MAX_ELEMS} elements")
     out = torch.empty((nb,) + tuple(out_shape), dtype=torch.float32, device=srcs.device)
     hi = _in_domain_hi(_source_dims(srcs, order))
     fn = _kernel_fn()

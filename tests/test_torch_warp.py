@@ -147,3 +147,87 @@ def test_wrapper_rejects_bad_operands_and_counts_no_cpu_launch():
         warp.warp_grid(torch.zeros(1, 4, 4, 4, dtype=torch.float64), torch.eye(4), (2, 2, 2), 1)
     warp.warp_grid(torch.zeros(1, 4, 4, 4), torch.eye(4), (2, 2, 2), 1)
     assert warp.warp_grid.launches == before
+
+
+def _knee_rotation_B():
+    """chip_smoke.py phase 8's map: bench.py's rotation (0.07 rad about the
+    third world axis, shift (1.2, -0.7, 0.4) mm) on 0.5x0.5x2 mm voxels."""
+    from dosma_tpu_torch.ops.registration import _world_matrix_to_index_map
+
+    th = 0.07
+    M = np.array([[np.cos(th), -np.sin(th), 0, 1.2], [np.sin(th), np.cos(th), 0, -0.7],
+                  [0, 0, 1.0, 0.4], [0, 0, 0, 1.0]], np.float32)
+    A = torch.from_numpy(np.diag([0.5, 0.5, 2.0, 1.0]).astype(np.float32))
+    return _world_matrix_to_index_map(torch.from_numpy(M), A, A)[:3].numpy()
+
+
+_KNEE = (384, 384, 160)
+# name -> (B, source dims (unpadded), output shape, expected branch)
+_BRANCH_CASES = {
+    "identity": (np.eye(4, dtype=np.float32)[:3], _KNEE, _KNEE, "staged"),
+    "knee_rotation": (_knee_rotation_B(), _KNEE, _KNEE, "staged"),
+    "axis_permutation": (np.array([[0, 0, 1, 0.5], [0, 1, 0, 0.25], [1, 0, 0, -1.0]], np.float32),
+                         (40, 48, 64), (64, 48, 40), "staged"),
+    "zoom_out_3": (_rotation_B(_KNEE, 3.0, (0.4, -0.2, 0.3), 3.0), _KNEE, _KNEE, "mixed"),
+    "nan_matrix": (np.full((3, 4), np.nan, np.float32), (20, 20, 20), (17, 19, 33), "gather"),
+}
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_branch_decision(case, order):
+    B, dims, out_shape, want = _BRANCH_CASES[case]
+    src_shape = tuple(d + 4 for d in dims) if order == 3 else dims
+    br = warp.warp_branches(B, src_shape, out_shape, order)
+    tiles = int(np.prod([-(-o // t) for o, t in zip(out_shape, warp._TILE[order])]))
+    assert br["staged"] + br["gather"] == tiles
+    if want == "staged":
+        assert br["gather"] == 0 and 0 < br["box_max"] <= warp._BOX_CAP
+    elif want == "gather":
+        assert br["staged"] == 0
+    else:  # tiles inside the volume overflow the buffer; those clipped to a face do not
+        assert br["gather"] > 0 and br["staged"] > 0
+    if case == "knee_rotation":
+        # what the tiles were chosen for: two volumes a buffer, and the read
+        # amplification that costs (1.33 and 2.18)
+        assert br["volumes_per_buffer"] >= 2
+        assert br["read_amplification"] <= (1.35 if order == 1 else 2.2)
+
+
+def test_branch_decision_per_group():
+    Bs = np.stack([np.eye(4, dtype=np.float32)[:3], np.full((3, 4), np.nan, np.float32)])
+    br = warp.warp_branches(Bs, (20, 20, 20), (20, 20, 20), 1)
+    tiles = int(np.prod([-(-20 // t) for t in warp._TILE[1]]))
+    assert br["staged"] == br["gather"] == tiles  # one group each way
+
+
+@pytest.mark.parametrize("case", ["identity", "rotation_shift", "partly_outside"])
+def test_separable_cubic_gather_matches_float64_taps(case):
+    """The separable float32 sum (k, then j, then i) against the 64 tap
+    products summed in float64."""
+    from dosma_tpu_torch.ops import interp
+
+    nb, src_shape, out_shape, B = _PALLAS_CASES[case]
+    vols = torch.from_numpy(_vols(1, src_shape, seed=9))
+    cp = warp.prepare_sources(vols, 3)[0]
+    c = interp._clip_to_domain(warp._grid_coords(torch.from_numpy(B), 0, int(np.prod(out_shape)),
+                                                 out_shape), src_shape)
+    got = interp._cubic_gather(cp, c).numpy()
+
+    def b3(t):
+        at = np.abs(t)
+        return np.where(at < 1, (4 - 6 * at ** 2 + 3 * at ** 3) / 6,
+                        np.where(at < 2, (2 - at) ** 3 / 6, 0.0))
+
+    cd = c.numpy().astype(np.float64)
+    fl = np.floor(cd)
+    w = [[b3(cd[ax] - fl[ax] + 1 - a) for a in range(4)] for ax in range(3)]
+    base = fl.astype(np.int64) + 1
+    cpd = cp.numpy().astype(np.float64)
+    want = np.zeros(cd.shape[1])
+    for a in range(4):
+        for b in range(4):
+            for d in range(4):
+                want += (w[0][a] * w[1][b] * w[2][d]
+                         * cpd[base[0] + a, base[1] + b, base[2] + d])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, float(np.abs(cpd).max())))
