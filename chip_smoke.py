@@ -16,7 +16,9 @@ Phases (any failure raises and exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at
      small shapes: edge cases (all-zero voxel, y_bounds, nan_policy="keep"
      with one iteration, N not a multiple of the block, per-voxel p0, a
-     seed whose cost is inf), several T, and for the generic kernel models
+     seed whose cost is inf), several T (biexp: uniform echoes from T = 3,
+     which take the e0 * q^t columns, and uneven ones at T = 8, which take
+     exact exponentials), and for the generic kernel models
      with P = 1, 2, 3, 4 built from every whitelisted operation.
      Tolerance: |Δ| <= 1e-5 * max(1, |v|) on every parameter and r2 of
      every voxel, identical NaN and infinity positions, converged flags
@@ -35,14 +37,15 @@ Phases (any failure raises and exits non-zero):
      launch count over that run; scipy parity of the map on 2,000 voxels
      (relative RMSE of tc < 5e-3); kernel and plain version compared on
      every voxel with the tolerance above, and timed (CUDA events, median
-     of 5 after a warm-up);
+     of 5 after a warm-up); the registers and spill bytes of the kernel's
+     instantiation on this path, from its ptxas report;
   5. biexponential fit at full width: 512x512x16 voxels x 8 echoes (the
      data of bench.py's biexp config, seed 0) as volumes on the card
      through CurveFitter(biexponential).fit; exactly one biexp_lm launch;
      the maps stay on the card; kernel and plain version compared on every
      voxel; scipy parity on 2,000 voxels (relative RMSE of each parameter
      < PARITY_GATE_FIT); converged fraction; kernel, plain version and warm
-     fit timed;
+     fit timed; the kernel's registers and spill bytes, as in phase 4;
   6. a user's model at full width: a * exp(b x) + c on 512x512x16 voxels x
      5 points (bench.py's generic config, seed 0) through curve_fit on the
      card; exactly one generic_lm launch; the same checks and times as
@@ -70,7 +73,8 @@ Phases (any failure raises and exits non-zero):
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
-operation side (mean iterations x operations an iteration).
+operation side (mean iterations x operations an iteration); phases 4 and 6
+also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
@@ -398,9 +402,8 @@ def build_all():
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s wall, in parallel")
     for name, lib in libs.items():
         log = lib.build_log.read_text()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(a) + int(b) for a, b in
-                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        kernels = ptxas_kernels(log).values()
+        regs, spills = [r for r, _ in kernels], [b for _, b in kernels]
         print(f"  {name}: nvcc {lib.build_seconds:.2f} s; ptxas: {len(regs)} kernels, "
               f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
               f"spill bytes {sum(spills)}")
@@ -412,6 +415,33 @@ def build_all():
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and (int(m.group(1)) or int(m.group(2))):
                 print("    ptxas:", line.strip())
+
+
+def ptxas_kernels(log):
+    """{mangled kernel name: (registers, spill bytes)} from a ptxas -v log."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out[name] = (int(regs.group(1)) if regs else -1,
+                     int(spill.group(1)) + int(spill.group(2)) if spill else 0)
+    return out
+
+
+def lm_registers(lib_name, kernel, T, uniform):
+    """Registers and spill bytes of the instantiation of an LM kernel that a
+    path launches (T echoes, uniform or exact columns), from its build log;
+    printed, and returned as (registers, spill bytes)."""
+    from dosma_tpu_torch.ops import _build
+
+    found = [v for k, v in ptxas_kernels(_build.load_library(lib_name).build_log.read_text()).items()
+             if re.search(rf"{kernel}ILi{T}ELb{int(uniform)}E", k)]
+    check(len(found) == 1, f"ptxas log of {lib_name}: {len(found)} entries for {kernel}<{T}, "
+          f"{uniform}>")
+    regs, spill = found[0]
+    print(f"ptxas {kernel}<T={T}, uniform={uniform}>: {regs} registers, {spill} spill bytes")
+    return regs, spill
 
 
 # ----------------------------------------------------------------------
@@ -453,8 +483,8 @@ def mono_small_cases(rs):
 
 def biexp_small_cases(rs):
     """(name, x, y (N, T), p0, kwargs) edge cases of the biexp fit."""
-    def data(N, T=8, noise=0.0):
-        x = np.linspace(0.0, 10.0, T).astype(np.float32)
+    def data(N, T=8, noise=0.0, x=None):
+        x = np.linspace(0.0, 10.0, T).astype(np.float32) if x is None else x
         a1, b1 = 0.8 + 0.4 * rs.rand(N), -(0.4 + 0.2 * rs.rand(N))
         a2, b2 = 0.3 + 0.3 * rs.rand(N), -(0.03 + 0.03 * rs.rand(N))
         Y = a1[:, None] * np.exp(b1[:, None] * x) + a2[:, None] * np.exp(b2[:, None] * x)
@@ -474,8 +504,10 @@ def biexp_small_cases(rs):
     pv = np.tile(p0, (500, 1)) * (1 + 0.1 * rs.randn(500, 1)).astype(np.float32)
     pv[9, 1] = 100.0  # exp(100 * 10) overflows: this voxel's initial cost is inf
     cases.append(("per_voxel_p0_bad_init", *data(500, noise=0.01), pv, kw))
-    for T in (2, 5, 8, 11):
+    for T in (2, 3, 5, 8, 11):
         cases.append((f"T{T}", *data(777, T=T, noise=0.01), p0, kw))
+    uneven = np.cumsum(np.linspace(0.5, 2.5, 8)).astype(np.float32)  # exact columns at T = 8
+    cases.append(("T8_nonuniform", *data(777, noise=0.01, x=uneven), p0, kw))
     return cases
 
 
@@ -773,11 +805,12 @@ def phase_monoexp(dt, dev, card):
           f"runs {[round(t, 4) for t in fit_all]}")
     print(f"  T2.metric_rows (warm): {metrics_ms:.4f} ms runs {[round(t, 4) for t in metrics_all]}")
     iters = iteration_report("monoexp_lm", latch_iterations(
-        lambda k: _packed_kernel(x_dev, yT, None, k, 1e-5, 1e-5, True), 100), 100)
+        lambda k: _packed_kernel(x_dev, yT, None, k, 1e-5, 1e-5, True), 100), 100, refill=True)
     b_ms, b_by = lm_bound(yT, 4, 20 * T + 40, iters["mean"])
+    regs, spill = lm_registers("monoexp_lm", "monoexp_lm_kernel", T, True)
     return {"launches": launches, "max_abs_err": max(max_err, max_err_r2),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "iterations": iters}
+            "library_ms": None, "iterations": iters, "registers": regs, "spill_bytes": spill}
 
 
 # ----------------------------------------------------------------------
@@ -808,7 +841,9 @@ def generic_data(seed=0):
 
 
 def phase_biexp(dt, dev, card):
-    from dosma_tpu_torch.ops.biexp import _packed_kernel, _reference_rows, biexp_lm, biexp_lm_reference
+    from dosma_tpu_torch.ops.biexp import (
+        _packed_kernel, _reference_rows, _uniform_path, biexp_lm, biexp_lm_reference,
+    )
 
     N, T = int(np.prod(FIT_SHAPE)), BIEXP_X.size
     t0 = time.perf_counter()
@@ -851,7 +886,8 @@ def phase_biexp(dt, dev, card):
     del got, ref
     x_dev = torch.from_numpy(BIEXP_X).to(dev)
     p0_dev = torch.tensor(BIEXP_P0, dtype=torch.float32, device=dev)
-    args = (x_dev, yT, p0_dev, 100, 1e-5, 1e-5)
+    uniform = _uniform_path(BIEXP_X)
+    args = (x_dev, yT, p0_dev, 100, 1e-5, 1e-5, uniform)
     pk, pr = _packed_kernel(*args), _reference_rows(*args)
     torch.cuda.synchronize()
     raw_err, raw_err_r2, raw_agree = compare_packed("biexp_lm full_size_packed", pk, pr, 4)
@@ -872,9 +908,11 @@ def phase_biexp(dt, dev, card):
     print(f"  CurveFitter(biexponential).fit (warm): {fit_ms:.4f} ms "
           f"({N / fit_ms * 1e3:.6g} voxels/s) runs {[round(t, 4) for t in fit_all]}")
     iters = iteration_report("biexp_lm", latch_iterations(
-        lambda k: _packed_kernel(x_dev, yT, p0_dev, k, 1e-5, 1e-5), 100), 100)
+        lambda k: _packed_kernel(x_dev, yT, p0_dev, k, 1e-5, 1e-5, uniform), 100), 100)
     b_ms, b_by = lm_bound(yT, 6, 40 * T + 80, iters["mean"])
+    regs, spill = lm_registers("biexp_lm", "biexp_lm_kernel", T, uniform)
     return {"launches": counts["biexp_lm"], "iterations": iters,
+            "registers": regs, "spill_bytes": spill,
             "max_abs_err": max(err, err_r2), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "fit_ms": fit_ms, "scipy_parity": parity, "converged_fraction": conv_frac}

@@ -6,26 +6,40 @@
 // smoke test hold this kernel against, is
 // dosma_tpu_torch/ops/biexp.py::_packed_reference.
 //
-// What bounds it on an H100: a voxel costs T*4 bytes of echoes and 16 bytes
-// of seeds in, 24 bytes of packed results out (64 bytes at T = 8), against
-// ~40 f32 operations per echo (the 10 + 4 sums of the normal equations), two
-// expf per echo and a 4x4 Cholesky with 4 square roots and 4 divisions per
-// LM iteration. At 4.2M voxels memory is ~270 MB, 0.08 ms at 3.35 TB/s; the
-// arithmetic of the LM iterations is far more, so it is bound by issue
-// rate, and a warp runs as long as its slowest voxel. (Measured: 0.73 ms
-// for 4.19M voxels x 8 echoes of noiseless bench data, 0.37 TB/s, on an
-// H100 80GB HBM3 at a 700 W power limit; chip_smoke.py phase 5.)
-// The design keeps memory at that floor:
+// What bounds it on an H100: instructions issued. A voxel costs T*4 bytes
+// of echoes and 16 bytes of seeds in, 24 bytes of packed results out (64
+// bytes at T = 8; ~270 MB at 4.2M voxels, 0.08 ms at 3.35 TB/s), against
+// ~710 SASS instructions an LM iteration at T = 8 (every multiply and add
+// its own instruction): the 10 + 4 sums of the normal equations, the
+// proposal's columns and residuals, a 4x4 Cholesky with 4 square roots
+// and 4 reciprocals, and the step ratio's 4 divisions; ~5.3 iterations a
+// voxel, and a warp runs as long as its slowest voxel (1.15x the mean on
+// bench data). Measured on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: 0.63 ms for 4.19M voxels x 8 echoes of noiseless bench data
+// (chip_smoke.py phase 5, tools/compare_kernels.py).
+// The design spends as few instructions as the plain version's operations
+// allow and keeps enough warps resident to hide the Cholesky's serial
+// chain:
 //   - one thread per voxel; the voxel axis of y (T, N) is contiguous, so
 //     each echo row is read coalesced across a warp, and the six output
 //     rows of (6, N) are written coalesced;
-//   - for T <= 8 the kernel is instantiated per T: the voxel's echoes, echo
-//     times and both exponential columns at the accepted parameters live in
-//     registers for the whole fit, so an iteration takes two fresh expf per
-//     echo (for the proposal) instead of four. Any other T re-reads y from
-//     global memory (L1/L2 resident after the first pass) and recomputes
-//     the columns from the accepted rates: exp of the same argument, so the
-//     same bits as carrying them, with nothing spilled;
+//   - for T <= 8 the kernel is instantiated per T, and the voxel's echoes
+//     and, at the accepted parameters, both exponential columns, the
+//     residuals and the raw cost live in registers (Point): the normal
+//     equations read the residuals the accepted proposal's cost already
+//     computed, and r^2 takes its residual sum from the raw cost. Any
+//     other T re-reads y from global memory (L1/L2 resident after the
+//     first pass) and recomputes columns and residuals from the accepted
+//     parameters: the same operations on the same values, so the same bits;
+//   - the echo times, the same for every voxel, are loaded once a block
+//     into shared memory. ptxas keeps the LM loop's reads of them in
+//     registers; forcing a shared-memory read at every use (volatile)
+//     saved 8 registers but was slower (0.67-0.68 against 0.63-0.64 ms);
+//   - uniformly spaced echoes (3 <= T <= 8) build each column as e0 * q^t,
+//     as monoexp_lm.cu does: four expf a proposal instead of 2T;
+//   - 128 threads a block and at least five blocks an SM: the ~94 registers
+//     a thread needs then leave 20 warps resident, where 256-thread blocks
+//     leave 16 (tools/compare_kernels.py --sweep: 0.63-0.64 against 0.69 ms);
 //   - the ragged edge is masked in the kernel, so no pad voxels exist (the
 //     TPU kernel padded with y = 1 and seed (1, 0, 0, 0)).
 // Each thread iterates until its own voxel latches or max_iter, and a
@@ -45,7 +59,9 @@
 //
 // Built with -fmad=false (ops/_build.py), and every sum over echoes runs in
 // order t = 0, 1, ..., T-1, as the plain version's: the two round every
-// operation alike.
+// operation alike. An FMA build is 14% faster (0.54 against 0.63 ms on the
+// card above; tools/compare_kernels.py --fma) and stays within 1e-5 of it
+// on the bench data, but is not bit-equal to the plain version.
 
 #include "lm_common.cuh"
 
@@ -55,91 +71,128 @@ using dosma::nmax;
 using dosma::nmin;
 using dosma::Voxel;
 
-// The exponential columns at the accepted rates. TT > 0: carried in
-// registers; TT == 0: recomputed from b1, b2 on every read.
-template <int TT>
-struct Columns {
-  float e1[TT > 0 ? TT : 1];
-  float e2[TT > 0 ? TT : 1];
-  float b1, b2;
+// Threads a block, and the fewest blocks an SM must hold at once, which caps
+// the registers a thread may use (ptxas's report: chip_smoke.py phase 5;
+// the measured choice: see above).
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 5;
 
-  __device__ __forceinline__ void set(const Voxel<TT>& v, float nb1, float nb2, const float* n1,
-                                      const float* n2) {
-    b1 = nb1;
-    b2 = nb2;
-    if constexpr (TT > 0) {
-#pragma unroll
-      for (int t = 0; t < TT; ++t) {
-        e1[t] = n1[t];
-        e2[t] = n2[t];
-      }
-    }
-  }
-  __device__ __forceinline__ float E1(const Voxel<TT>& v, int t) const {
-    if constexpr (TT > 0) return e1[t]; else return expf(b1 * v.X(t));
-  }
-  __device__ __forceinline__ float E2(const Voxel<TT>& v, int t) const {
-    if constexpr (TT > 0) return e2[t]; else return expf(b2 * v.X(t));
+// Echo times: one copy a block in shared memory for T <= 8, read through
+// the pointer otherwise.
+template <int TT>
+struct Times {
+  const float* xp;
+  __device__ __forceinline__ float operator()(int t) const {
+    if constexpr (TT > 0) return xp[t]; else return __ldg(xp + t);
   }
 };
 
-// Model value and cost at (a1, b1, a2, b2); fills the proposal's columns
-// when TT > 0.
+// The exponential columns exp(b x_t) of one rate, produced in order t = 0,
+// 1, ..., T-1 by at(). Uniformly spaced echoes (UNI) multiply by q =
+// exp(b dx) as monoexp_lm.cu's columns do: two expf a column instead of T.
+template <bool UNI>
+struct ECols {
+  float b, cur, q;
+  __device__ __forceinline__ ECols(float b_, float x0, float dx) : b(b_), cur(0.f), q(0.f) {
+    if constexpr (UNI) {
+      cur = expf(b * x0);
+      q = expf(b * dx);
+    }
+  }
+  __device__ __forceinline__ float at(int t, float xt) {
+    if constexpr (UNI) {
+      if (t > 0) cur = cur * q;
+      return cur;
+    } else {
+      return expf(b * xt);
+    }
+  }
+};
+
+// One parameter point's columns e1, e2 and residuals r = a1 e1 + a2 e2 - y
+// (T <= 8: in registers; T > 8 recomputes them from the rates on every
+// read, with the same operations, so the same bits), and the raw cost
+// sum r^2: the accepted point's feed the normal equations, and its raw
+// cost is r^2's residual sum.
 template <int TT>
-__device__ __forceinline__ float cost_at(const Voxel<TT>& v, int T, float a1, float b1, float a2,
-                                         float b2, float* n1, float* n2) {
+struct Point {
+  float e1[TT > 0 ? TT : 1];
+  float e2[TT > 0 ? TT : 1];
+  float r[TT > 0 ? TT : 1];
+  float raw;
+};
+
+template <int TT, bool UNI>
+__device__ __forceinline__ void evaluate(const Voxel<TT>& v, const Times<TT>& x, int T, float a1,
+                                         float b1, float a2, float b2, Point<TT>& p) {
+  const float x0 = x(0), dx = T > 1 ? x(1) - x(0) : x(0);
+  ECols<UNI> c1(b1, x0, dx), c2(b2, x0, dx);
   float c = -0.0f;
 #pragma unroll
   for (int t = 0; t < (TT > 0 ? TT : T); ++t) {
-    const float xt = v.X(t);
-    const float e1 = expf(b1 * xt);
-    const float e2 = expf(b2 * xt);
-    if constexpr (TT > 0) {
-      n1[t] = e1;
-      n2[t] = e2;
-    }
+    const float xt = UNI ? 0.f : x(t);
+    const float e1 = c1.at(t, xt);
+    const float e2 = c2.at(t, xt);
     const float r = a1 * e1 + a2 * e2 - v.Y(t);
+    if constexpr (TT > 0) {
+      p.e1[t] = e1;
+      p.e2[t] = e2;
+      p.r[t] = r;
+    }
     c += r * r;
   }
-  return isfinite(c) ? c : INFINITY;
+  p.raw = c;
 }
 
-template <int TT>
-__global__ void __launch_bounds__(dosma::kThreads)
+__device__ __forceinline__ float mapped(float c) { return isfinite(c) ? c : INFINITY; }
+
+template <int TT, bool UNI>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 biexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long long y_st,
                 long long y_sn, const float* __restrict__ p0, long long p0_sp, long long p0_sn,
                 float* __restrict__ out, long long N, int T_rt, int max_iter, float ftol,
                 float xtol) {
+  __shared__ float x_sh[TT > 0 ? TT : 1];
+  if constexpr (TT > 0) {
+    if (threadIdx.x < TT) x_sh[threadIdx.x] = __ldg(x + threadIdx.x);
+    __syncthreads();
+  }
   const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (n >= N) return;
 
-  const Voxel<TT> v(x, y + n * y_sn, y_st, T_rt);
+  const Times<TT> xt_of{TT > 0 ? x_sh : x};
+  const Voxel<TT> v(x, y + n * y_sn, y_st, T_rt);  // its echoes; x is read through xt_of
   const int T = TT > 0 ? TT : T_rt;
-  constexpr int R = TT > 0 ? TT : 1;
 
   const float* pv = p0 + n * p0_sn;
   float a1 = __ldg(pv), b1 = __ldg(pv + p0_sp), a2 = __ldg(pv + 2 * p0_sp),
         b2 = __ldg(pv + 3 * p0_sp);
 
-  Columns<TT> cols;
-  float n1[R], n2[R];
-  float cost = cost_at<TT>(v, T, a1, b1, a2, b2, n1, n2);
-  cols.set(v, b1, b2, n1, n2);
-  const bool bad_init = !isfinite(cost);  // cost_at maps it to +inf
+  Point<TT> cur, prop;
+  evaluate<TT, UNI>(v, xt_of, T, a1, b1, a2, b2, cur);
+  const bool bad_init = !isfinite(cur.raw);
 
   float lam = 1e-3f;
   bool latched = false;
   for (int it = 0; it < max_iter && !latched; ++it) {
+    const float cost = mapped(cur.raw);
     // Normal equations (lower triangle) and gradient, summed over echoes.
     float A11 = -0.0f, A21 = -0.0f, A22 = -0.0f, A31 = -0.0f, A32 = -0.0f, A33 = -0.0f,
           A41 = -0.0f, A42 = -0.0f, A43 = -0.0f, A44 = -0.0f;
     float g1 = -0.0f, g2 = -0.0f, g3 = -0.0f, g4 = -0.0f;
 #pragma unroll
     for (int t = 0; t < (TT > 0 ? TT : T); ++t) {
-      const float xt = v.X(t);
-      const float e1 = cols.E1(v, t);
-      const float e2 = cols.E2(v, t);
-      const float r = a1 * e1 + a2 * e2 - v.Y(t);
+      const float xt = xt_of(t);
+      float e1, e2, r;
+      if constexpr (TT > 0) {
+        e1 = cur.e1[t];
+        e2 = cur.e2[t];
+        r = cur.r[t];
+      } else {
+        e1 = expf(b1 * xt);
+        e2 = expf(b2 * xt);
+        r = a1 * e1 + a2 * e2 - v.Y(t);
+      }
       const float j2 = a1 * (xt * e1);
       const float j4 = a2 * (xt * e2);
       A11 += e1 * e1;
@@ -189,7 +242,8 @@ biexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long l
     const float d1 = (z1 - l21 * d2 - l31 * d3 - l41 * d4) * i11;
 
     const float na1 = a1 - d1, nb1 = b1 - d2, na2 = a2 - d3, nb2 = b2 - d4;
-    const float new_cost = cost_at<TT>(v, T, na1, nb1, na2, nb2, n1, n2);
+    evaluate<TT, UNI>(v, xt_of, T, na1, nb1, na2, nb2, prop);
+    const float new_cost = mapped(prop.raw);
 
     // Equal cost is accepted; the latch reads the predicted reduction,
     // which rejections near the f32 cost floor cannot stall.
@@ -206,8 +260,7 @@ biexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long l
       b1 = nb1;
       a2 = na2;
       b2 = nb2;
-      cols.set(v, nb1, nb2, n1, n2);
-      cost = new_cost;
+      cur = prop;
     }
     lam = accept ? nmax(lam * 0.33f, 1e-12f) : nmin(lam * 10.0f, 1e10f);
   }
@@ -216,11 +269,9 @@ biexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long l
 #pragma unroll
   for (int t = 0; t < (TT > 0 ? TT : T); ++t) ysum += v.Y(t);
   const float y_mean = ysum / (float)T;
-  float ss_res = -0.0f, ss_tot = -0.0f;
+  float ss_tot = -0.0f;
 #pragma unroll
   for (int t = 0; t < (TT > 0 ? TT : T); ++t) {
-    const float r = a1 * cols.E1(v, t) + a2 * cols.E2(v, t) - v.Y(t);
-    ss_res += r * r;
     const float d = v.Y(t) - y_mean;
     ss_tot += d * d;
   }
@@ -230,16 +281,16 @@ biexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long l
   out[N + n] = b1;
   out[2 * N + n] = a2;
   out[3 * N + n] = b2;
-  out[4 * N + n] = 1.0f - ss_res / (ss_tot + 1e-8f);
+  out[4 * N + n] = 1.0f - cur.raw / (ss_tot + 1e-8f);
   out[5 * N + n] = (latched && finite && !bad_init) ? 1.0f : 0.0f;
 }
 
-template <int TT>
+template <int TT, bool UNI>
 void launch(const float* x, const float* y, long long y_st, long long y_sn, const float* p0,
             long long p0_sp, long long p0_sn, float* out, long long N, int T, int max_iter,
             float ftol, float xtol, cudaStream_t stream) {
-  const long long blocks = (N + dosma::kThreads - 1) / dosma::kThreads;
-  biexp_lm_kernel<TT><<<(unsigned int)blocks, dosma::kThreads, 0, stream>>>(
+  const long long blocks = (N + kThreads - 1) / kThreads;
+  biexp_lm_kernel<TT, UNI><<<(unsigned int)blocks, kThreads, 0, stream>>>(
       x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol);
 }
 
@@ -248,26 +299,35 @@ void launch(const float* x, const float* y, long long y_st, long long y_sn, cons
 // x (T,) f32; y (T, N) f32 read at y[t * y_st + n * y_sn]; p0 the seeds
 // [a1, b1, a2, b2] read at p0[i * p0_sp + n * p0_sn] (p0_sn = 0 broadcasts
 // one seed); out (6, N) f32 contiguous, rows [a1, b1, a2, b2, r2,
-// converged]. Launches on `stream`, does not synchronise, and returns
+// converged]. uniform_x != 0 (taken for 3 <= T <= 8) builds the columns
+// as e0 * q^t. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError().
 extern "C" int dosma_biexp_lm(const float* x, const float* y, long long y_st, long long y_sn,
                               const float* p0, long long p0_sp, long long p0_sn, float* out,
                               long long N, int T, int max_iter, float ftol, float xtol,
-                              void* stream) {
+                              int uniform_x, void* stream) {
   if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + dosma::kThreads - 1) / dosma::kThreads > 0x7fffffffLL)
+  if ((N + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool uni = uniform_x != 0;
+#define DOSMA_BIEXP_ARGS x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s
+#define DOSMA_BIEXP_CASE(TV)                                                             \
+  case TV:                                                                               \
+    if (uni) launch<TV, true>(DOSMA_BIEXP_ARGS); else launch<TV, false>(DOSMA_BIEXP_ARGS); \
+    break;
   switch (T) {
-    case 1: launch<1>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 2: launch<2>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 3: launch<3>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 4: launch<4>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 5: launch<5>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 6: launch<6>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 7: launch<7>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    case 8: launch<8>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s); break;
-    default: launch<0>(x, y, y_st, y_sn, p0, p0_sp, p0_sn, out, N, T, max_iter, ftol, xtol, s);
+    case 1: launch<1, false>(DOSMA_BIEXP_ARGS); break;
+    case 2: launch<2, false>(DOSMA_BIEXP_ARGS); break;
+    DOSMA_BIEXP_CASE(3)
+    DOSMA_BIEXP_CASE(4)
+    DOSMA_BIEXP_CASE(5)
+    DOSMA_BIEXP_CASE(6)
+    DOSMA_BIEXP_CASE(7)
+    DOSMA_BIEXP_CASE(8)
+    default: launch<0, false>(DOSMA_BIEXP_ARGS);
   }
+#undef DOSMA_BIEXP_CASE
+#undef DOSMA_BIEXP_ARGS
   return (int)cudaGetLastError();
 }

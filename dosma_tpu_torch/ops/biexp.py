@@ -14,6 +14,9 @@ carried at the accepted parameters, an unrolled 4×4 Cholesky, equal cost
 accepted, λ ×0.33 on accept and ×10 on reject (``lm_fit``'s ladder is ×3),
 and a latch on the predicted reduction or the step ratio. Each voxel
 iterates until its own latch or ``max_iter`` and then stays frozen.
+Uniformly spaced echoes with 3 <= T <= 8 build each column as e0 * q^t
+(``monoexp._exp_cols``): four exponentials a proposal in the kernel instead
+of 2T, a few ulp from exact exponentials; the JAX kernel takes exact ones.
 """
 
 from __future__ import annotations
@@ -24,24 +27,28 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from dosma_tpu_torch.ops.monoexp import _tmean, _tsum
+from dosma_tpu_torch.ops.monoexp import _detect_uniform_x, _exp_cols, _tmean, _tsum
 from dosma_tpu_torch.ops.nlls import _apply_nan_policy
 
 __all__ = ["biexp_lm", "biexp_lm_reference"]
 
 _OUT_ROWS = 6  # [a1, b1, a2, b2, r2, converged]
+_MAX_REGISTER_ECHOES = 8  # lm_common.cuh::kMaxRegisterEchoes: the kernel's uniform path ends here
 
 
 # ----------------------------------------------------------------------
 # Plain PyTorch version (the kernel's reference, and the CPU path)
 # ----------------------------------------------------------------------
-def _packed_reference(x, yT, p0m, max_iter, ftol, xtol) -> torch.Tensor:
-    """The fit on (T, N) ``yT`` from (4, N) seeds: packed (6, N) rows."""
+def _packed_reference(x, yT, p0m, max_iter, ftol, xtol, uniform_x) -> torch.Tensor:
+    """The fit on (T, N) ``yT`` from (4, N) seeds: packed (6, N) rows.
+    ``uniform_x`` builds the exponential columns as e0 * q^t (only for
+    3 <= T <= 8, as the kernel does)."""
+    uniform_x = bool(uniform_x) and x.shape[0] <= _MAX_REGISTER_ECHOES
     xc = x[:, None]
     a1, b1, a2, b2 = (p0m[i].clone() for i in range(4))
 
     def cost_at(a1, b1, a2, b2):
-        e1, e2 = torch.exp(b1 * xc), torch.exp(b2 * xc)
+        e1, e2 = _exp_cols(b1, x, uniform_x), _exp_cols(b2, x, uniform_x)
         r = a1 * e1 + a2 * e2 - yT
         c = _tsum(r * r)
         return torch.where(torch.isfinite(c), c, torch.inf), e1, e2
@@ -134,15 +141,16 @@ def _kernel_fn():
     fn = load_library("biexp_lm").dosma_biexp_lm
     if fn.argtypes is None:
         vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, ll, ci, ci, cf, cf, vp]
+        fn.argtypes = [vp, vp, ll, ll, vp, ll, ll, vp, ll, ci, ci, cf, cf, ci, vp]
         fn.restype = ci
     return fn
 
 
-def _packed_kernel(x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
+def _packed_kernel(x, yT, p0, max_iter, ftol, xtol, uniform_x) -> torch.Tensor:
     """Launch ``csrc/biexp_lm.cu`` on the current stream: packed (6, N).
 
     ``p0`` is (4,) (one seed for every voxel) or (N, 4), read in place.
+    ``uniform_x`` takes the e0 * q^t columns (see :func:`_uniform_path`).
     """
     T, N = yT.shape
     out = torch.empty((_OUT_ROWS, N), dtype=torch.float32, device=yT.device)
@@ -157,7 +165,7 @@ def _packed_kernel(x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
         err = fn(
             x.data_ptr(), yT.data_ptr(), yT.stride(0), yT.stride(1),
             p0.data_ptr(), p0_sp, p0_sn, out.data_ptr(), N, T,
-            int(max_iter), float(ftol), float(xtol), stream,
+            int(max_iter), float(ftol), float(xtol), int(bool(uniform_x)), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -167,10 +175,17 @@ def _packed_kernel(x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
     return out
 
 
-def _reference_rows(x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
+def _reference_rows(x, yT, p0, max_iter, ftol, xtol, uniform_x) -> torch.Tensor:
     N = yT.shape[1]
     p0m = p0[:, None].expand(4, N) if p0.ndim == 1 else p0.T
-    return _packed_reference(x, yT, p0m, max_iter, ftol, xtol)
+    return _packed_reference(x, yT, p0m, max_iter, ftol, xtol, uniform_x)
+
+
+def _uniform_path(x) -> bool:
+    """True when both versions build the columns as e0 * q^t: uniformly
+    spaced echoes, 3 <= T <= 8 (beyond 8 the kernel rebuilds each column
+    from its rate, so both take exact exponentials)."""
+    return _detect_uniform_x(x) and np.asarray(x).size <= _MAX_REGISTER_ECHOES
 
 
 # ----------------------------------------------------------------------
@@ -207,7 +222,8 @@ def _fit(packed: Optional[Callable], x, y, p0, max_iter, ftol, xtol, y_bounds, n
         out = torch.empty((_OUT_ROWS, 0), dtype=torch.float32, device=device)
     else:
         x_dev = torch.as_tensor(x_host, device=device)
-        out = packed(x_dev, yT, p0_t, int(max_iter), float(ftol), float(xtol))
+        out = packed(x_dev, yT, p0_t, int(max_iter), float(ftol), float(xtol),
+                     _uniform_path(x_host))
 
     return _apply_nan_policy(out, yT, 4, y_bounds, nan_policy)
 

@@ -22,6 +22,14 @@ Tolerances:
   - NaN positions identical; converged flags equal on ≥ 99% of voxels.
   - the noisy fit agrees with ``scipy.optimize.curve_fit`` in curve space to
     2e-3, the bound the JAX package's own test uses.
+  - ``T3``: three echoes do not determine four parameters, only the curve
+    through them, so that case holds the fitted curves (1e-4, as every
+    case), r² and the flags, and no parameter bound.
+
+Uniformly spaced echoes with 3 <= T <= 8 take the port's e0 * q^t columns
+(``T3``, ``T5``, the default 8), uneven ones exact exponentials
+(``nonuniform_x``), as do more than 8 (``T11``): both are held to the JAX
+kernel with the tolerances above.
 """
 
 import numpy as np
@@ -31,7 +39,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from dosma_tpu.ops.biexp_pallas import biexp_lm_pallas
-from dosma_tpu_torch.ops.biexp import biexp_lm, biexp_lm_reference
+from dosma_tpu_torch.ops.biexp import _reference_rows, _uniform_path, biexp_lm, biexp_lm_reference
+from dosma_tpu_torch.ops.monoexp import _exp_cols, _tmean, _tsum
 
 
 @pytest.fixture(autouse=True)
@@ -47,9 +56,12 @@ def _compute_on_cpu():
 _P0 = np.array([1.0, -0.5, 0.4, -0.04], np.float32)
 
 
-def _data(N=256, seed=0, noise=0.0, T=8):
+_UNEVEN_X = np.cumsum(np.linspace(0.5, 2.5, 8)).astype(np.float32)  # 0.5 ... 12.0
+
+
+def _data(N=256, seed=0, noise=0.0, T=8, x=None):
     rs = np.random.RandomState(seed)
-    x = np.linspace(0.0, 10.0, T).astype(np.float32)
+    x = np.linspace(0.0, 10.0, T).astype(np.float32) if x is None else x
     a1 = 0.8 + 0.4 * rs.rand(N).astype(np.float32)
     b1 = -(0.4 + 0.2 * rs.rand(N).astype(np.float32))
     a2 = 0.3 + 0.3 * rs.rand(N).astype(np.float32)
@@ -94,6 +106,10 @@ def _case(name):
     if name == "layout_tn":
         x, Y = _data(seed=8)
         return x, np.ascontiguousarray(Y.T), _P0, dict(kw, y_layout="tn"), 2e-5, 1e-6
+    if name == "nonuniform_x":
+        return (*_data(seed=12, x=_UNEVEN_X), _P0, kw, 2e-5, 1e-6)
+    if name == "T3":
+        return (*_data(seed=9, T=3), _P0, kw, None, 1e-6)
     if name.startswith("T"):
         return (*_data(seed=9, T=int(name[1:])), _P0, kw, 2e-5, 1e-6)
     raise KeyError(name)
@@ -102,6 +118,7 @@ def _case(name):
 _CASES = [
     "noiseless", "noisy", "all_zero_voxel", "y_bounds", "keep_one_iter",
     "n_not_multiple_of_block", "per_voxel_p0", "bad_init_voxel", "layout_tn", "T5", "T11",
+    "nonuniform_x", "T3",
 ]
 
 
@@ -122,7 +139,8 @@ def test_matches_jax_kernel(name):
     assert pt.shape == pj.shape and rt.shape == rj.shape and ct.shape == cj.shape
     np.testing.assert_array_equal(np.isnan(pt), np.isnan(pj))
     fin = np.isfinite(pj)
-    assert (np.abs(pt - pj)[fin] <= ptol * np.maximum(1.0, np.abs(pj[fin]))).all()
+    if ptol is not None:
+        assert (np.abs(pt - pj)[fin] <= ptol * np.maximum(1.0, np.abs(pj[fin]))).all()
     assert np.abs(rt - rj).max() <= r2tol
     assert (ct == cj).mean() >= 0.99
 
@@ -139,6 +157,32 @@ def test_matches_jax_kernel(name):
         assert (~ct).any() and np.isfinite(pt).all()
     if name == "bad_init_voxel":
         assert np.isnan(pt[9]).all() and not ct[9] and ct.mean() > 0.95
+
+
+@pytest.mark.parametrize("name", ["noisy_uniform", "nonuniform_x", "one_iter", "T11"])
+def test_r2_is_the_cost_at_the_returned_parameters(name):
+    # The kernel's r² reads the raw cost carried from the accepted point's
+    # evaluation: it must be 1 - c / (ss_tot + 1e-8), bit for bit, with c
+    # the raw cost at the returned parameters, on every voxel whose cost is
+    # finite.
+    kw = {"max_iter": 1 if name == "one_iter" else 100}
+    x, Y = (_data(seed=13, noise=0.02, x=_UNEVEN_X) if name == "nonuniform_x"
+            else _data(seed=13, noise=0.02, T=11 if name == "T11" else 8))
+    Y[5] = 0
+    p0 = np.tile(_P0, (Y.shape[0], 1))
+    p0[9, 1] = 100.0  # an infinite initial cost
+    uniform = _uniform_path(x)
+    assert uniform == (name in ("noisy_uniform", "one_iter"))
+    xt, yT = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(Y.T))
+    rows = _reference_rows(xt, yT, torch.from_numpy(p0), kw["max_iter"], 1e-5, 1e-5, uniform)
+    a1, b1, a2, b2, r2 = rows[:5]
+    r = a1 * _exp_cols(b1, xt, uniform) + a2 * _exp_cols(b2, xt, uniform) - yT
+    c = _tsum(r * r)
+    d = yT - _tmean(yT)
+    expected = 1.0 - c / (_tsum(d * d) + 1e-8)
+    fin = torch.isfinite(c)
+    assert int(fin.sum()) >= Y.shape[0] - 2
+    assert torch.equal(r2[fin], expected[fin])
 
 
 def test_noisy_matches_scipy():

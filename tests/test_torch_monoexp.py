@@ -27,7 +27,10 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from dosma_tpu.ops.monoexp_pallas import monoexp_lm_pallas
-from dosma_tpu_torch.ops.monoexp import monoexp_lm, monoexp_lm_reference
+from dosma_tpu_torch.ops.monoexp import (
+    _detect_uniform_x, _exp_cols, _packed_reference, _reduced_cost, _tmean, _tsum, monoexp_lm,
+    monoexp_lm_reference,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -152,6 +155,29 @@ def test_noisy_matches_scipy_and_jax():
         )
         assert np.abs(pt[i] - ref).max() < 1e-3, (i, pt[i], ref)
         assert np.abs(pj[i] - ref).max() < 1e-3, (i, pj[i], ref)
+
+
+@pytest.mark.parametrize("name", ["uniform_seeded", "nonuniform_x", "one_iter", "T11"])
+def test_r2_and_amplitude_are_the_reduced_cost_at_the_returned_rate(name):
+    # The kernel writes a = t1 / s1 and r² from the reduced cost carried
+    # with the final rate: both must be, bit for bit, what _reduced_cost
+    # gives at the returned b, on every voxel whose cost is finite.
+    x = {"nonuniform_x": np.array([5.0, 12.0, 30.0, 47.0], np.float32),
+         "T11": (10.0 * np.arange(1, 12)).astype(np.float32)}.get(name, _X4)
+    x, Y, _ = _data(N=512, seed=8, noise=0.02, x=x)
+    Y[3] = 0
+    Y[5] = np.exp(0.02 * x)
+    uniform = _detect_uniform_x(x)
+    xt, yT = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(Y.T))
+    max_iter = 1 if name == "one_iter" else 100
+    a, b, r2 = _packed_reference(xt, yT, None, max_iter, 1e-5, 1e-5, uniform)[:3]
+    e = _exp_cols(b, xt, uniform)
+    c, t1 = _reduced_cost(e, yT)
+    d = yT - _tmean(yT)
+    fin = torch.isfinite(c)
+    assert int(fin.sum()) >= 510
+    assert torch.equal(r2[fin], (1.0 - c / (_tsum(d * d) + 1e-8))[fin])
+    assert torch.equal(a[fin], (t1 / torch.clamp(_tsum(e * e), min=1e-30))[fin])
 
 
 def test_reference_entry_point_equals_cpu_dispatch():

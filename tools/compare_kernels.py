@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Time the redesigned kernels of one checkout of the port on a CUDA card.
+"""Time the hand-written kernels of one checkout of the port on a CUDA card.
 
 Usage, on a machine with one CUDA card:
 
-    python3 tools/compare_kernels.py --root DIR [--fma]
+    python3 tools/compare_kernels.py --root DIR [--fma] [--sweep] [--sass]
+    python3 tools/compare_kernels.py --turns DIR_A DIR_B [--fma] [--sass]
 
-imports ``dosma_tpu_torch`` from the checkout at DIR (its kernels build into
-DIR's own ``dosma_tpu_torch/_build/``) and times, with CUDA events (after
-a warm-up):
+``--root`` imports ``dosma_tpu_torch`` from the checkout at DIR (its kernels
+build into DIR's own ``dosma_tpu_torch/_build/``) and times, with CUDA
+events (after a warm-up):
 
+- the monoexp LM kernel on chip_smoke.py phase 4's data (config1:
+  512x512x64 voxels x 4 echoes, noise 0.005, seed 0, the log-linear seed in
+  the kernel, max_iter 100), and the biexp LM kernel on phase 5's data
+  (512x512x16 voxels x 8 uniform echoes, noiseless, seed 0, max_iter 100);
+  beside each, the SHA-256 of its packed output rows, so that two
+  checkouts' outputs can be compared bit for bit;
 - the generic LM kernel on chip_smoke.py phase 6's data: a * exp(b x) + c,
   512x512x16 voxels x 5 points, seed 0, max_iter 60;
 - the warp kernel on chip_smoke.py phase 8's data: 4 volumes of
@@ -26,20 +33,39 @@ a warm-up):
   from ``torch.profiler`` (``*_kernel_ms``), which host work cannot
   reach.
 
-``--fma`` also times the checkout's warp kernel built with FMA contraction
-(``_build.load_library("warp_grid", fmad=True)``), which the port does not
-use, at every warp shape above, and reports its largest |Δ| to the port's
-build and the voxels beyond 1e-5 * max(1, |v|).
+``--fma`` also times the checkout's LM kernels (monoexp, biexp) and warp
+kernel built with FMA contraction (``_build.load_library(name,
+fmad=True)``), which the port does not use, at every shape above, and
+reports each one's largest |Δ| to the port's build and the values beyond
+1e-5 * max(1, |v|).
 
-It prints one JSON line with the card, the root and the times. To compare
-two checkouts on one card, run it in turns (A, B, B, A) in one command: two
-calls may land on two cards.
+``--sweep`` times the monoexp and biexp kernels built with each of three
+``__launch_bounds__`` settings (``kThreads`` threads a block and
+``kMinBlocks`` resident blocks an SM, which cap a thread's registers, in
+``csrc/monoexp_lm.cu`` and ``csrc/biexp_lm.cu``; see SWEEP), each with its
+registers and spill bytes from ptxas and its output's digest.
+
+``--sass`` counts, with ``cuobjdump -sass``, the instructions of the LM
+kernels' instantiations on these paths (monoexp T = 4 uniform, biexp T = 8)
+and of their LM loop: the span of the function's longest backward branch,
+whose body is one iteration on the path where no division takes its slow
+path (those are called out of line).
+
+Each run prints one JSON line with the card, the root and the numbers.
+``--turns A B`` runs ``--root`` on A, B, B, A in turn (four processes, one
+card: two calls of the tool may land on two cards), prints their lines,
+then one JSON line with each root's median of every time and whether B's
+monoexp and biexp rows are bit-identical to A's.
 """
 
 import argparse
+import hashlib
 import importlib.util
+import inspect
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 
@@ -47,17 +73,30 @@ import numpy as np
 import torch
 
 SMALL_REPS = 50  # launches between two events at the registration shapes
+LM_REPS = 10  # LM kernel launches between two events (median of 11)
+# (threads, minimum blocks) for --sweep: the compiler's choice and two caps
+SWEEP = {"monoexp_lm": ((256, 1), (256, 5), (256, 6)),
+         "biexp_lm": ((256, 1), (128, 5), (256, 3))}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--root", required=True, help="checkout whose dosma_tpu_torch is timed")
+    target = parser.add_mutually_exclusive_group(required=True)
+    target.add_argument("--root", help="checkout whose dosma_tpu_torch is timed")
+    target.add_argument("--turns", nargs=2, metavar=("A", "B"),
+                        help="time checkouts A and B in turns A, B, B, A")
     parser.add_argument("--fma", action="store_true",
-                        help="also time the warp kernel built with FMA contraction")
+                        help="also time the LM and warp kernels built with FMA contraction")
+    parser.add_argument("--sweep", action="store_true",
+                        help="also time the LM kernels at three launch-bounds settings")
+    parser.add_argument("--sass", action="store_true",
+                        help="count the LM kernels' SASS instructions")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_kernels: a CUDA card is required", file=sys.stderr)
         return 1
+    if opts.turns:
+        return _turns(opts)
     root = os.path.abspath(opts.root)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(here, "chip_smoke.py"))
@@ -78,6 +117,10 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     res = {"root": opts.root, "card": card}
 
+    _lm_kernels(cs, dev, res, opts)
+    if opts.sass:
+        _sass(res)
+
     Y, _ = cs.generic_data()
     yT = torch.from_numpy(np.ascontiguousarray(Y.T)).to(dev)
     x = torch.from_numpy(cs.GENERIC_X).to(dev)
@@ -87,7 +130,8 @@ def main(argv=None):
         lambda: _packed_kernel(program, x, yT, p0, 60, 1e-5, 1e-5))
     del yT
 
-    fma_launch = _fma_launcher(warp_mod) if opts.fma else None
+    fma_launch = _fma_launcher(warp_mod, "warp_grid", "dosma_warp_grid", "_launch") \
+        if opts.fma else None
     M = np.array([[np.cos(cs.WARP_ANGLE), -np.sin(cs.WARP_ANGLE), 0, cs.WARP_SHIFT[0]],
                   [np.sin(cs.WARP_ANGLE), np.cos(cs.WARP_ANGLE), 0, cs.WARP_SHIFT[1]],
                   [0, 0, 1.0, cs.WARP_SHIFT[2]], [0, 0, 0, 1.0]], np.float32)
@@ -117,16 +161,169 @@ def main(argv=None):
         if fma_launch is not None:
             got = warp_mod.warp_grid(srcs, Bc, out_shape, order)
             fma = fma_launch(srcs, Bc, out_shape, order)
-            diff = (fma - got).abs().nan_to_num(0)
             timings(f"{name}_fma", lambda: fma_launch(srcs, Bc, out_shape, order), reps)
-            res[f"{name}_fma_max_abs_diff"] = float(diff.max())
-            res[f"{name}_fma_beyond_tolerance"] = int(
-                (diff > cs.TOL * got.abs().clamp(min=1.0)).sum())
-            del got, fma, diff
+            _fma_diff(cs, res, name, fma, got)
+            del got, fma
         del srcs
         torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0
+
+
+def _lm_kernels(cs, dev, res, opts):
+    """The monoexp and biexp kernels of the checkout on phases 4 and 5's
+    data: times, output digests, and with opts.fma / opts.sweep the FMA
+    builds and the launch-bounds sweep."""
+    from dosma_tpu_torch.ops import biexp as biexp_mod
+    from dosma_tpu_torch.ops import monoexp as mono_mod
+
+    Y, _, _ = cs.config1_data(seed=0)
+    yT = torch.from_numpy(np.ascontiguousarray(Y.T)).to(dev)
+    del Y
+    x = torch.from_numpy(cs.ECHO_TIMES).to(dev)
+    margs = (x, yT, None, 100, 1e-5, 1e-5, True)
+    res["monoexp_lm_ms"], res["monoexp_lm_runs"] = _time(
+        cs, lambda: mono_mod._packed_kernel(*margs), LM_REPS)
+    rows = mono_mod._packed_kernel(*margs)
+    res["monoexp_rows_sha256"] = _digest(rows)
+    if opts.sweep:
+        _sweep(cs, res, mono_mod, "monoexp_lm", margs)
+    if opts.fma:
+        fma = mono_mod._packed_kernel(*margs, fmad=True)
+        res["monoexp_lm_fma_ms"], res["monoexp_lm_fma_runs"] = _time(
+            cs, lambda: mono_mod._packed_kernel(*margs, fmad=True), LM_REPS)
+        _fma_diff(cs, res, "monoexp_lm", fma, rows)
+        del fma
+    del rows, yT
+    torch.cuda.empty_cache()
+
+    yT = torch.from_numpy(np.ascontiguousarray(cs.biexp_data().T)).to(dev)
+    x = torch.from_numpy(cs.BIEXP_X).to(dev)
+    p0 = torch.tensor(cs.BIEXP_P0, dtype=torch.float32, device=dev)
+    bargs = (x, yT, p0, 100, 1e-5, 1e-5)
+    if len(inspect.signature(biexp_mod._packed_kernel).parameters) == 7:
+        bargs += (biexp_mod._uniform_path(cs.BIEXP_X),)  # the e0 * q^t columns, where taken
+    res["biexp_lm_ms"], res["biexp_lm_runs"] = _time(
+        cs, lambda: biexp_mod._packed_kernel(*bargs), LM_REPS)
+    rows = biexp_mod._packed_kernel(*bargs)
+    res["biexp_rows_sha256"] = _digest(rows)
+    if opts.fma:
+        launch = _fma_launcher(biexp_mod, "biexp_lm", "dosma_biexp_lm", "_packed_kernel")
+        fma = launch(*bargs)
+        res["biexp_lm_fma_ms"], res["biexp_lm_fma_runs"] = _time(
+            cs, lambda: launch(*bargs), LM_REPS)
+        _fma_diff(cs, res, "biexp_lm", fma, rows)
+        del fma
+    if opts.sweep:
+        _sweep(cs, res, biexp_mod, "biexp_lm", bargs)
+    del rows, yT
+    torch.cuda.empty_cache()
+
+
+def _sweep(cs, res, mod, name, args):
+    """``mod._packed_kernel(*args)`` on builds of ``csrc/<name>.cu`` with
+    each SWEEP setting of its kThreads and kMinBlocks."""
+    from dosma_tpu_torch.ops import _build
+
+    source = (_build._CSRC / f"{name}.cu").read_text()
+    patterns = (r"constexpr int kThreads = \d+;", r"constexpr int kMinBlocks = \d+;")
+    if not all(re.search(p, source) for p in patterns):
+        raise RuntimeError(f"{name}.cu of this root has no kThreads / kMinBlocks to sweep")
+    port_fn = mod._kernel_fn
+    for threads, blocks in SWEEP[name]:
+        text = re.sub(patterns[0], f"constexpr int kThreads = {threads};", source)
+        text = re.sub(patterns[1], f"constexpr int kMinBlocks = {blocks};", text)
+        lib = _build.load_generated(f"{name}_{threads}x{blocks}", text)
+        fn = getattr(lib, port_fn().__name__)
+        fn.argtypes, fn.restype = port_fn().argtypes, port_fn().restype
+        key = f"{name}_{threads}x{blocks}"
+        mod._kernel_fn = lambda *_, fn=fn: fn
+        try:
+            res[f"{key}_ms"], res[f"{key}_runs"] = _time(
+                cs, lambda: mod._packed_kernel(*args), LM_REPS)
+            res[f"{key}_rows_sha256"] = _digest(mod._packed_kernel(*args))
+        finally:
+            mod._kernel_fn = port_fn
+        res[f"{key}_ptxas"] = {_short(k): v for k, v in
+                               cs.ptxas_kernels(lib.build_log.read_text()).items()
+                               if re.search(r"kernelILi[48]ELb1E", k)}
+
+
+def _sass(res):
+    """Static SASS counts of the LM kernels' instantiations on phases 4 and
+    5's paths: the whole function, and its LM loop with its mix."""
+    from dosma_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for lib_name, pattern in (("monoexp_lm", r"monoexp_lm_kernelILi4ELb1E"),
+                              ("biexp_lm", r"biexp_lm_kernelILi8E(?:Lb1E)?E")):
+        path = _build.load_library(lib_name)._name
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        funcs = {}
+        for chunk in sass.split("Function : ")[1:]:
+            funcs[chunk.split("\n", 1)[0].strip()] = chunk
+        names = [k for k in funcs if re.search(pattern, k)]
+        if len(names) != 1:
+            raise RuntimeError(f"{lib_name}: {len(names)} SASS functions match {pattern}")
+        res[f"{lib_name}_sass"] = _loop_counts(funcs[names[0]])
+
+
+def _loop_counts(text):
+    """Instructions of one SASS function and of the span of its longest
+    backward branch (its outermost loop), with the loop's mix by opcode
+    family."""
+    ins, labels, pending = [], {}, []
+    for line in text.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+            labels.update({name: ins[-1][0] for name in pending})
+            pending = []
+    body = [(a, op) for a, op in ins if not op.startswith("NOP")]
+    loops = []
+    for a, op in body:  # a branch target is an address or a label
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", op)
+        if m:
+            dest = labels.get(m.group(1)) if m.group(1).startswith(".L") else int(m.group(1), 16)
+            if dest is not None and dest < a:
+                loops.append((dest, a))
+    out = {"function_instructions": len(body)}
+    if loops:
+        lo, hi = max(loops, key=lambda s: s[1] - s[0])
+        loop = [op for a, op in body if lo <= a <= hi]
+        mix = {}
+        for op in loop:
+            word = op.split()[1] if op.startswith("@") else op.split()[0]
+            family = word.split(".")[0]
+            if family in ("FMUL", "FADD", "FFMA", "MUFU", "FSETP", "FSEL", "SEL", "FMNMX",
+                          "CALL", "ISETP", "LDS", "LDG"):
+                mix[family] = mix.get(family, 0) + 1
+        out.update(loop_instructions=len(loop), loop_mix=mix)
+    return out
+
+
+def _short(mangled):
+    m = re.search(r"(\w+?_kernel)(I.*?E)E", mangled)
+    return m.group(1) + m.group(2) if m else mangled
+
+
+def _digest(t):
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _fma_diff(cs, res, name, fma, port):
+    """Largest |Δ| of the FMA build against the port's build, and the values
+    beyond the kernel-vs-plain tolerance (NaN at the same place counts 0)."""
+    diff = (fma - port).abs().nan_to_num(0)
+    nan_moved = torch.isnan(fma) != torch.isnan(port)
+    res[f"{name}_fma_max_abs_diff"] = float(diff.max())
+    res[f"{name}_fma_beyond_tolerance"] = int(
+        ((diff > cs.TOL * port.abs().clamp(min=1.0)) | nan_moved).sum())
 
 
 def _time(cs, fn, reps):
@@ -140,22 +337,50 @@ def _time(cs, fn, reps):
     return med / reps, [t / reps for t in runs]
 
 
-def _fma_launcher(warp_mod):
-    """``warp_mod._launch`` on the FMA build of warp_grid.cu: the wrapper's
-    own checks and arguments, the other library's entry."""
+def _fma_launcher(mod, lib_name, entry, wrapper):
+    """``mod.<wrapper>`` on the FMA build of ``csrc/<lib_name>.cu``: the
+    wrapper's own checks and arguments, the other library's entry."""
     from dosma_tpu_torch.ops._build import load_library
 
-    port_fn = warp_mod._kernel_fn
-    fma_fn = load_library("warp_grid", fmad=True).dosma_warp_grid
+    port_fn = mod._kernel_fn
+    fma_fn = getattr(load_library(lib_name, fmad=True), entry)
     fma_fn.argtypes, fma_fn.restype = port_fn().argtypes, port_fn().restype
 
     def launch(*args):
-        warp_mod._kernel_fn = lambda: fma_fn
+        mod._kernel_fn = lambda: fma_fn
         try:
-            return warp_mod._launch(*args)
+            return getattr(mod, wrapper)(*args)
         finally:
-            warp_mod._kernel_fn = port_fn
+            mod._kernel_fn = port_fn
     return launch
+
+
+def _turns(opts):
+    """--root on A, B, B, A in four processes; their lines, then each
+    root's median of every time and whether B's LM rows equal A's."""
+    a, b = opts.turns
+    flags = [f for f, on in (("--fma", opts.fma), ("--sass", opts.sass)) if on]
+    lines = []
+    for root in (a, b, b, a):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root, *flags],
+                              capture_output=True, text=True)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            print(f"compare_kernels: --root {root} failed ({proc.returncode})", file=sys.stderr)
+            return proc.returncode
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        lines.append(json.loads(line))
+    summary = {"card": lines[0]["card"], "order": [a, b, b, a]}
+    for label, runs in (("A", (lines[0], lines[3])), ("B", (lines[1], lines[2]))):
+        summary[label] = {k: statistics.median([r[k] for r in runs]) for k in runs[0]
+                          if k.endswith("_ms") and all(k in r for r in runs)}
+    for kernel in ("monoexp", "biexp"):
+        key = f"{kernel}_rows_sha256"
+        summary[f"{kernel}_rows_identical"] = (
+            lines[0][key] == lines[1][key] == lines[2][key] == lines[3][key])
+    print(json.dumps(summary))
+    return 0
 
 
 if __name__ == "__main__":
