@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
      source, all started together: monoexp_lm.cu, biexp_lm.cu,
      warp_grid.cu and the generic LM kernel generated for each model used
      below; print the nvcc seconds and the ptxas register
-     and spill counts (for warp_grid, each order's kernel);
+     and spill counts (for warp_grid, each order's kernel); beside them,
+     g++ builds the host DICOM reader and codecs (csrc/host/*.cpp);
   3. hold each kernel against its plain PyTorch version on the card at
      small shapes: edge cases (all-zero voxel, y_bounds, nan_policy="keep"
      with one iteration, N not a multiple of the block, per-voxel p0, a
@@ -69,7 +70,27 @@ Phases (any failure raises and exits non-zero):
      never used by the port) timed (CUDA events, median of 5); bytes,
      achieved bandwidth and the bound; the bench size 192x192x48, order 1,
      one volume, between two events and, from torch.profiler, the kernel
-     alone.
+     alone;
+  9. a DICOM series in, T2 maps and metrics out, at config1's full width:
+     phase 4's echoes (seed 0) scaled to uint16 and written by the port's
+     DicomWriter as 256 single-frame files (EchoNumbers, EchoTime); the
+     host libraries must be the port's own builds; read back by
+     DicomReader(num_workers=8) (host) and load_to_device (pinned, side
+     stream) onto the card: 4 volumes of 512x512x64 with the written
+     affine, echo times and pixels; MonoExponentialFit(tc0="polyfit") on
+     the card volumes: exactly one monoexp_lm launch, the map bit-equal to
+     the same fit of the rounded echoes given as arrays; qdess_t2_map of
+     echoes 1 and 2 on the card against a numpy float64 evaluation (every
+     voxel within 1e-4 * max(1, |v|), NaN placement identical except at
+     voxels within that tolerance of a bound; with decimals=1, each voxel
+     that differs does so by 0.1 at a rounding boundary or at a bound);
+     T2.metric_rows with the two-label mask as a uint16 volume against
+     numpy float64 over the host map (categories and voxel counts equal,
+     Mean / Std / Median within rtol 1e-6); the map's NIfTI save_data /
+     load_data and one echo's DicomWriter round trip, equal; the warm wall
+     from the directory to metric rows (median of 3) with its breakdown:
+     read and parse, H2D pinned against pageable, fit (with one header
+     copy's time and a cProfile of one fit by own time), metrics, write.
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -78,8 +99,8 @@ also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
-Each path (phases 4, 5, 6, 7) runs with every launch count set to 0 just
-before it and read just after. The last two lines are one JSON object
+Each path (phases 4, 5, 6, 7, 9) runs with every launch count set to 0
+just before it and read just after. The last two lines are one JSON object
 with every kernel (its bound: the larger of the bytes it must move over
 3.35 TB/s and its float32 operations over 67 TFLOP/s) and the result
 object. It imports nothing of JAX.
@@ -87,7 +108,9 @@ object. It imports nothing of JAX.
 
 import argparse
 import concurrent.futures
+import copy
 import json
+import os
 import re
 import shutil
 import statistics
@@ -392,14 +415,18 @@ def build_all():
     jobs = {"monoexp_lm.cu": lambda: _build.load_library("monoexp_lm"),
             "biexp_lm.cu": lambda: _build.load_library("biexp_lm"),
             "warp_grid.cu": lambda: _build.load_library("warp_grid")}
+    host = {f"{name}.cpp (g++)": lambda n=name: _build.load_host_library(n)
+            for name in ("dosma_io", "dosma_codecs")}
     for name, (model, nparams, _, _) in GENERIC_MODELS.items():
         program = compile_model(model, nparams)
         jobs[f"generic_lm ({name})"] = lambda p=program: build_kernel(p)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        libs = {k: pool.submit(fn) for k, fn in jobs.items()}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs) + len(host)) as pool:
+        libs = {k: pool.submit(fn) for k, fn in {**jobs, **host}.items()}
         libs = {k: f.result() for k, f in libs.items()}
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s wall, in parallel")
+    for name in host:
+        print(f"  {name}: {libs.pop(name).build_seconds:.2f} s")
     for name, lib in libs.items():
         log = lib.build_log.read_text()
         kernels = ptxas_kernels(log).values()
@@ -1245,10 +1272,361 @@ def phase_warp(dev, card):
     return res
 
 
+# ----------------------------------------------------------------------
+# Phase 9: a DICOM series in, T2 maps and metrics out
+# ----------------------------------------------------------------------
+DICOM_SCALE = 40000.0  # config1's echoes (about 0..1) to uint16
+DICOM_SPACING = (0.3125, 0.3125, 1.5)
+# tests/scan_sequences/mri/test_qdess.py's acquisition: TR, TE, t1 in ms,
+# tg in microseconds, alpha in degrees, the spoiler area.
+QDESS_PHYSICS = dict(tr=25.0, te=8.0, tg=1560.0, alpha=30.0, gl_area=3132.0, t1=1200.0)
+QDESS_BOUNDS = (0.0, 100.0)
+
+
+def dicom_headers():
+    """(1, 1, slices, echoes) headers of config1 as an axial series: one
+    dataset per slice and echo, EchoNumbers and EchoTime set."""
+    from dosma_tpu_torch.core.io.dicom import Dataset
+    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
+
+    series = generate_uid()
+    nslices, T = SHAPE[2], ECHO_TIMES.size
+    headers = np.empty((1, 1, nslices, T), dtype=object)
+    for e in range(T):
+        for s in range(nslices):
+            ds = Dataset()
+            ds.SOPInstanceUID = generate_uid()
+            ds.SeriesInstanceUID = series
+            ds.Modality = "MR"
+            ds.InstanceNumber = e * nslices + s + 1
+            ds.EchoNumbers = e + 1
+            ds.EchoTime = float(ECHO_TIMES[e])
+            ds.RepetitionTime = QDESS_PHYSICS["tr"]
+            ds.FlipAngle = QDESS_PHYSICS["alpha"]
+            ds.Rows, ds.Columns = SHAPE[0], SHAPE[1]
+            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
+            ds.PixelRepresentation = 0
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelSpacing = [DICOM_SPACING[0], DICOM_SPACING[1]]
+            ds.SliceThickness = DICOM_SPACING[2]
+            ds.ImagePositionPatient = [0.0, 0.0, DICOM_SPACING[2] * s]
+            ds.ImageOrientationPatient = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+            headers[0, 0, s, e] = ds
+    return headers
+
+
+def qdess_t2_numpy(e1, e2, tr, te, tg, alpha, gl_area, t1, diffusivity=1.25e-9):
+    """The qDESS analytic T2 in numpy float64, before its bounds: the plain
+    evaluation phase 9 holds the port's float32 map against."""
+    import math
+
+    TR, TE, Tg, T1 = tr * 1e-3, te * 1e-3, tg * 1e-6, t1 * 1e-3
+    a = math.radians(alpha)
+    dkL = 4258 * 2 * math.pi * (gl_area / (Tg * 1e6) * 100) * Tg
+    decay = math.exp(-TR / T1 - TR * dkL ** 2 * diffusivity)
+    k = math.sin(a / 2) ** 2 * (1 + decay) / (1 - math.cos(a) * decay)
+    c1 = (TR - Tg / 3) * dkL ** 2 * diffusivity
+    e1, e2 = e1.astype(np.float64), e2.astype(np.float64)
+    with np.errstate(all="ignore"):
+        ratio = np.nan_to_num(e2 / e1)
+        return np.nan_to_num(-2000.0 * (TR - TE) / (np.log(np.abs(ratio) / k) + c1))
+
+
+def check_qdess(got_none, got_1, ref):
+    """Phase 9's qDESS checks against the float64 map ``ref`` (before its
+    bounds). Unrounded (NaN outside the bounds): every voxel finite in
+    both within 1e-4 * max(1, |v|), NaN placement identical except at
+    voxels within that tolerance of a bound. Rounded to 0.1 (NaN -> 0): a
+    voxel that differs does so by 0.1 with its value at a rounding
+    boundary, or sits at a bound. Returns the counts."""
+    lo, hi = QDESS_BOUNDS
+    tol = 1e-4 * np.maximum(1.0, np.abs(ref))
+    at_bound = (np.abs(ref - lo) <= tol) | (np.abs(ref - hi) <= tol)
+    ref_nan = (ref < lo) | (ref > hi)
+    got_nan = np.isnan(got_none)
+    placement = got_nan != ref_nan
+    check(not (placement & ~at_bound).any(),
+          f"qdess NaN placement differs at {int((placement & ~at_bound).sum())} voxels off the bounds")
+    both = ~got_nan & ~ref_nan
+    over = (np.abs(got_none[both] - ref[both]) > tol[both]).sum()
+    check(over == 0, f"qdess: {int(over)} voxels beyond 1e-4 * max(1, |v|)")
+    ref_1 = np.where(ref_nan, 0.0, np.round(ref, 1))
+    diff = np.abs(got_1 - ref_1)
+    differ = diff > 1e-4
+    scaled = ref * 10
+    at_half = np.abs(scaled - np.floor(scaled) - 0.5) <= 1e-3
+    by_tenth = differ & (np.abs(diff - 0.1) <= 1e-4) & at_half
+    check(not (differ & ~by_tenth & ~at_bound).any(),
+          f"qdess decimals=1: {int((differ & ~by_tenth & ~at_bound).sum())} voxels differ by "
+          "other than 0.1 at a rounding boundary or at a bound")
+    err = float(np.abs(got_none[both] - ref[both]).max())
+    return {"max_abs_err": err, "nan_placement_at_bound": int(placement.sum()),
+            "rounded_differ": int(differ.sum()), "rounded_differ_by_tenth": int(by_tenth.sum()),
+            "rounded_differ_at_bound": int((differ & ~by_tenth).sum()),
+            "voxels_in_bounds": int(both.sum())}
+
+
+def numpy_metric_rows(host_map, labels_np, labels):
+    """T2.metric_rows computed with numpy in float64 over the host map."""
+    finite = np.isfinite(host_map)
+    regions = [(name, labels_np == label) for label, name in labels.items()]
+    regions.append(("total", labels_np > 0))
+    rows = []
+    for name, sel in regions:
+        v = host_map[sel & finite].astype(np.float64)
+        rows.append({"Category": name, "Mean": float(np.mean(v)), "Std": float(np.std(v)),
+                     "Median": float(np.median(v)), "# Voxels": int(v.size)})
+    return rows
+
+
+def check_metric_rows(rows, want, rtol=1e-6):
+    """Categories and voxel counts equal, Mean / Std / Median within
+    ``rtol``; returns the largest relative difference."""
+    check([(r["Category"], r["# Voxels"]) for r in rows]
+          == [(r["Category"], r["# Voxels"]) for r in want],
+          f"metric rows {rows} differ from numpy's {want} in categories or voxel counts")
+    worst = 0.0
+    for r, w in zip(rows, want):
+        for col in ("Mean", "Std", "Median"):
+            rel = abs(r[col] - w[col]) / abs(w[col])
+            check(rel <= rtol, f"metric rows: {r['Category']} {col} {r[col]} vs numpy's "
+                               f"{w[col]} (rel {rel:.3g} > {rtol:g})")
+            worst = max(worst, rel)
+    return worst
+
+
+def fit_profile(fit, top=8):
+    """cProfile of one warm call of ``fit``: its host wall and the ``top``
+    functions by own time, as printable lines (ms)."""
+    import cProfile
+    import pstats
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fit()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    worst = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    lines = [f"own {tt * 1e3:8.3f} ms  with callees {ct * 1e3:8.3f} ms  calls {nc:6d}  "
+             f"{path.replace(os.getcwd() + os.sep, '')}:{line}({name})"
+             for (path, line, name), (_, nc, tt, ct, _) in worst]
+    return wall, lines
+
+
+def median_wall(fn, reps=3):
+    """Median and all of ``reps`` host walls of ``fn`` (synchronized)."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def device_busy_share(fn):
+    """(host wall s, device busy ms, idle share) of one call of ``fn``: the
+    union of the card's kernel and copy intervals in torch.profiler's trace,
+    against the host wall around the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -np.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return wall, busy_us / 1e3, 1.0 - busy_us / 1e6 / wall
+
+
+def phase_dicom(dt, dev, card):
+    from dosma_tpu_torch.core.io import _native
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+    from dosma_tpu_torch.ops.qmri import qdess_t2_map
+
+    T = ECHO_TIMES.size
+    t0 = time.perf_counter()
+    _, echoes, labels_np = config1_data(seed=0)
+    u16 = np.stack([np.clip(np.round(e * DICOM_SCALE), 0, 65535).astype(np.uint16)
+                    for e in echoes], axis=-1)
+    del echoes
+    headers = dicom_headers()
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    print(f"phase 9 data: config1 (seed 0) x {DICOM_SCALE:g} as uint16 {u16.shape}, "
+          f"{u16.nbytes / 1e6:.1f} MB of pixels, in {time.perf_counter() - t0:.2f} s (host)")
+
+    for lib in (_native._load(), _native._load_codecs()):
+        path = os.path.realpath(lib._name)
+        check(os.path.dirname(path).endswith(os.path.join("dosma_tpu_torch", "_build")),
+              f"host library {path} is not the port's own build")
+    print(f"phase 9 host libraries: {os.path.basename(_native._load()._name)}, "
+          f"{os.path.basename(_native._load_codecs()._name)} (dosma_tpu_torch/_build, g++)")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dicom_")
+    try:
+        series_dir = os.path.join(work, "series")
+        t0 = time.perf_counter()
+        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(u16, affine, headers=headers),
+                                           series_dir)
+        write_series_s = time.perf_counter() - t0
+        files = sorted(os.listdir(series_dir))
+        check(len(files) == SHAPE[2] * T, f"{len(files)} files written, not {SHAPE[2] * T}")
+        nbytes = sum(os.path.getsize(os.path.join(series_dir, f)) for f in files)
+        print(f"phase 9 write: DicomWriter(num_workers=8) {len(files)} files, "
+              f"{nbytes / 1e6:.1f} MB, in {write_series_s:.3f} s")
+
+        host = dt.DicomReader(num_workers=8).load(series_dir)
+        card_vols = dt.load_to_device(series_dir, device=dev, num_workers=8)
+        for name, vols in (("DicomReader", host), ("load_to_device", card_vols)):
+            check(len(vols) == T, f"{name}: {len(vols)} groups, not {T}")
+            for e, v in enumerate(vols):
+                check(v.shape == SHAPE, f"{name}: echo {e + 1} shape {v.shape}")
+                check(np.array_equal(v.affine, affine), f"{name}: echo {e + 1} affine")
+                check(v.get_metadata("EchoTime") == float(ECHO_TIMES[e]),
+                      f"{name}: echo {e + 1} EchoTime {v.get_metadata('EchoTime')}")
+        for e, (h, c) in enumerate(zip(host, card_vols)):
+            check(h.A.dtype == np.uint16 and np.array_equal(h.A, u16[..., e]),
+                  f"DicomReader: echo {e + 1} pixels")
+            want = torch.from_numpy(u16[..., e]).to(dev).to(torch.int32)
+            check(c.A.device == want.device and c.A.dtype == torch.int32 and torch.equal(c.A, want),
+                  f"load_to_device: echo {e + 1} pixels")
+        print(f"phase 9 read: {T} groups of {SHAPE} by both readers, written affine, echo times "
+              f"{[v.get_metadata('EchoTime') for v in host]}, pixels equal (uint16 on the host, "
+              f"int32 on the card)")
+
+        x = [v.get_metadata("EchoTime") for v in card_vols]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc_map, r2_map = dt.MonoExponentialFit(tc0="polyfit").fit(x, card_vols)
+        torch.cuda.synchronize()
+        first_fit_s = time.perf_counter() - t0
+        counts = expect_launches("DICOM fit", monoexp_lm=1)
+        check(tc_map.A.device == dev and tc_map.shape == SHAPE, "the DICOM path's map")
+        ref_map, _ = dt.MonoExponentialFit(tc0="polyfit").fit(
+            ECHO_TIMES, [dt.MedicalVolume(u16[..., e], affine) for e in range(T)])
+        host_map = tc_map.A.cpu().numpy()
+        check(np.array_equal(host_map, ref_map.A, equal_nan=True)
+              and np.array_equal(np.signbit(host_map), np.signbit(ref_map.A)),
+              "the map fitted from DICOM differs from the fit of the same echoes as arrays")
+        print(f"phase 9 fit: MonoExponentialFit(tc0='polyfit') on the card volumes, launches "
+              f"{counts}, first call {first_fit_s:.4f} s; map bit-equal to the fit of the "
+              f"rounded echoes given as arrays")
+
+        physics = QDESS_PHYSICS
+        got_none = qdess_t2_map(card_vols[0].A, card_vols[1].A, **physics, decimals=None,
+                                nan_to_num=None).cpu().numpy().astype(np.float64)
+        got_1 = qdess_t2_map(card_vols[0].A, card_vols[1].A, **physics).cpu().numpy()
+        ref = qdess_t2_numpy(u16[..., 0], u16[..., 1], **physics)
+        q = check_qdess(got_none, got_1.astype(np.float64), ref)
+        qdess_ms, _ = time_ms(lambda: qdess_t2_map(card_vols[0].A, card_vols[1].A, **physics))
+        print(f"phase 9 qdess_t2_map on the card vs numpy float64: max|Δ| {q['max_abs_err']:.3g} "
+              f"over {q['voxels_in_bounds']} voxels in bounds; NaN placement differs at "
+              f"{q['nan_placement_at_bound']} voxels, each at a bound; decimals=1: "
+              f"{q['rounded_differ']} voxels differ ({q['rounded_differ_by_tenth']} by 0.1 at a "
+              f"rounding boundary, {q['rounded_differ_at_bound']} at a bound); "
+              f"{qdess_ms:.4f} ms on {card} (CUDA events, median of 5)")
+        del got_none, got_1, ref
+
+        labels = {1: "region_1", 2: "region_2"}
+        mask = dt.MedicalVolume(labels_np.astype(np.uint16), affine)
+        rows = dt.T2(tc_map).metric_rows(mask, labels)
+        metrics_rel = check_metric_rows(rows, numpy_metric_rows(host_map, labels_np, labels))
+        print(f"phase 9 metrics: categories and voxel counts equal to numpy's, Mean / Std / "
+              f"Median within rel {metrics_rel:.3g} of numpy float64 (tolerance 1e-6)")
+        for row in rows:
+            print("  phase 9 metrics:", json.dumps(row))
+
+        maps_dir = os.path.join(work, "maps")
+        t0 = time.perf_counter()
+        dt.T2(tc_map).save_data(maps_dir)
+        save_map_s = time.perf_counter() - t0
+        back = dt.T2()
+        back.load_data(maps_dir)
+        check(np.array_equal(back.volumetric_map.A, host_map, equal_nan=True)
+              and np.array_equal(back.volumetric_map.affine, affine), "NIfTI map round trip")
+        echo_dir = os.path.join(work, "echo3")
+        t0 = time.perf_counter()
+        dt.DicomWriter(num_workers=8).save(card_vols[2], echo_dir)
+        save_echo_s = time.perf_counter() - t0
+        echo_back = dt.DicomReader(num_workers=8).load(echo_dir)
+        check(len(echo_back) == 1 and np.array_equal(echo_back[0].A, u16[..., 2])
+              and np.array_equal(echo_back[0].affine, affine), "DICOM echo round trip")
+        print(f"phase 9 round trips equal: T2 save_data/load_data (NIfTI, {save_map_s:.3f} s to "
+              f"write), DicomWriter of echo 3 from the card ({save_echo_s:.3f} s) and back")
+
+        # Warm walls (the files sit in the page cache), each the median of 3.
+        def dir_to_metrics():
+            vols = dt.load_to_device(series_dir, device=dev, num_workers=8)
+            tc, _ = dt.MonoExponentialFit(tc0="polyfit").fit(
+                [v.get_metadata("EchoTime") for v in vols], vols)
+            return dt.T2(tc).metric_rows(mask, labels)
+
+        wall_s, walls = median_wall(dir_to_metrics)
+        prof_wall_s, busy_ms, idle = device_busy_share(dir_to_metrics)
+        read_s, _ = median_wall(lambda: dt.DicomReader(num_workers=8).load(series_dir))
+        prefetch_s, _ = median_wall(
+            lambda: dt.load_to_device(series_dir, device=dev, num_workers=8))
+        arrays = [np.ascontiguousarray(v.A) for v in host]
+        pageable_s, _ = median_wall(lambda: [torch.from_numpy(a).to(dev) for a in arrays])
+        pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+        pinned_s, _ = median_wall(lambda: [p.to(dev, non_blocking=True) for p in pinned])
+        del pinned
+        fit_s, _ = median_wall(lambda: dt.MonoExponentialFit(tc0="polyfit").fit(x, card_vols))
+        prof_fit_s, prof_lines = fit_profile(
+            lambda: dt.MonoExponentialFit(tc0="polyfit").fit(x, card_vols))
+        copy_s, _ = median_wall(lambda: copy.deepcopy(card_vols[0].headers()))
+        metrics_s, _ = median_wall(lambda: dt.T2(tc_map).metric_rows(mask, labels))
+        moved = sum(a.nbytes for a in arrays)
+        print(f"phase 9 on {card}: DICOM directory -> metric rows (load_to_device, fit, "
+              f"metric_rows), warm, median of 3: {wall_s:.4f} s, runs "
+              f"{[round(w, 4) for w in walls]}; one more run under torch.profiler: wall "
+              f"{prof_wall_s:.4f} s, the card busy {busy_ms:.3f} ms (kernels and copies), "
+              f"idle share {idle:.4f}")
+        print(f"  read and parse (DicomReader(num_workers=8).load, host): {read_s:.4f} s")
+        print(f"  load_to_device (read, parse, pinned H2D on a side stream): {prefetch_s:.4f} s; "
+              f"read then a pageable copy would take {read_s + pageable_s:.4f} s")
+        print(f"  H2D of the same {moved / 1e6:.1f} MB: pageable {pageable_s * 1e3:.3f} ms "
+              f"({moved / pageable_s / 1e9:.3f} GB/s), pinned {pinned_s * 1e3:.3f} ms "
+              f"({moved / pinned_s / 1e9:.3f} GB/s)")
+        print(f"  fit (MonoExponentialFit.fit on the card volumes): {fit_s * 1e3:.3f} ms; "
+              f"one deep copy of an echo's {card_vols[0].headers().size} headers (the fit "
+              f"makes two) {copy_s * 1e3:.3f} ms; one more fit under cProfile "
+              f"{prof_fit_s * 1e3:.3f} ms, by own time:")
+        for line in prof_lines:
+            print("    " + line)
+        print(f"  metrics (T2.metric_rows, uint16 mask): {metrics_s * 1e3:.3f} ms")
+        print(f"  write: T2.save_data (NIfTI .nii.gz) {save_map_s:.3f} s, DicomWriter of one "
+              f"echo ({SHAPE[2]} files) {save_echo_s:.3f} s, the series ({len(files)} files) "
+              f"{write_series_s:.3f} s")
+        return {"wall_s": wall_s, "busy_ms": busy_ms, "idle_share": idle, "read_s": read_s, "prefetch_s": prefetch_s,
+                "pageable_ms": pageable_s * 1e3, "pinned_ms": pinned_s * 1e3,
+                "fit_ms": fit_s * 1e3, "header_copy_ms": copy_s * 1e3,
+                "metrics_ms": metrics_s * 1e3, "metrics_rel_err": metrics_rel, "qdess_ms": qdess_ms,
+                **q}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
-                        help="stop after phase 3 (build and small cases); prints no result")
+                        help="stop after phase 3 (build and small cases); phases 4-9 (the "
+                             "full-width paths, phase 9 the DICOM series) do not run; prints "
+                             "no result")
     opts = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1289,6 +1667,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     knee = phase_warp(dev, card)
     print(f"phases 7-8: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    phase_dicom(dt, dev, card)
+    print(f"phase 9: {time.perf_counter() - t_start:.1f} s")
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).

@@ -1,11 +1,14 @@
 """dosma_tpu_torch: the PyTorch / CUDA port of dosma_tpu.
 
-The same public names as ``dosma_tpu`` for the ported slices: voxelwise
-monoexponential relaxometry, the curve-fitting API (``CurveFitter``,
-``PolyFitter``, ``curve_fit``, ``polyfit``) and matrix registration
-(``register``, ``apply_warp`` and the ``ops.registration`` functions).
-Importing it loads torch and numpy only: no jax, pandas, yaml or
-matplotlib. Kernels are compiled on first use.
+The same public names as ``dosma_tpu`` for the ported slices: DICOM and
+NIfTI I/O (``read``/``write``/``load``/``save``, the readers and writers,
+``load_to_device``), voxelwise monoexponential relaxometry, the
+curve-fitting API (``CurveFitter``, ``PolyFitter``, ``curve_fit``,
+``polyfit``), quantitative maps and their metrics (``quant_vals``), the
+numpy routines on volumes and matrix registration (``register``,
+``apply_warp`` and the ``ops.registration`` functions). Importing it loads
+torch and numpy only: no jax, pandas, yaml or matplotlib. Kernels and the
+host C++ libraries are compiled on first use.
 
 Entry points compute host (numpy) data on the default device, the first
 CUDA card, unless the caller asks for another:
@@ -34,8 +37,33 @@ from dosma_tpu_torch.core.fitting import (  # noqa: F401
     monoexponential,
     polyfit,
 )
+from dosma_tpu_torch.core.io.dicom_io import DicomReader, DicomWriter  # noqa: F401
+from dosma_tpu_torch.core.io.format_io import ImageDataFormat  # noqa: F401
+from dosma_tpu_torch.core.io.format_io_utils import (  # noqa: F401
+    convert_image_data_format,
+    generic_load,
+    get_filepath_variations,
+    get_reader,
+    get_writer,
+    load,
+    read,
+    save,
+    write,
+)
+from dosma_tpu_torch.core.io.nifti_io import NiftiReader, NiftiWriter  # noqa: F401
+from dosma_tpu_torch.core.io.prefetch import load_to_device  # noqa: F401
 from dosma_tpu_torch.core.med_volume import MedicalVolume  # noqa: F401
-from dosma_tpu_torch.core.orientation import AXIAL, CORONAL, SAGITTAL, to_affine  # noqa: F401
+from dosma_tpu_torch.core import numpy_routines, quant_vals  # noqa: F401
+from dosma_tpu_torch.core.orientation import (  # noqa: F401
+    AXIAL,
+    CORONAL,
+    SAGITTAL,
+    get_flip_inds,
+    get_transpose_inds,
+    orientation_nib_to_standard,
+    orientation_standard_to_nib,
+    to_affine,
+)
 from dosma_tpu_torch.core.quant_vals import (  # noqa: F401
     QuantitativeValue,
     T1Rho,
@@ -60,3 +88,5 @@ from dosma_tpu_torch.ops.registration import (  # noqa: F401
     warp_volume_batch,
     warp_volume_chain,
 )
+from dosma_tpu_torch.utils.env import debug  # noqa: F401
+from dosma_tpu_torch.utils.logger import setup_logger  # noqa: F401

@@ -23,6 +23,7 @@ import torch
 
 __all__ = [
     "Device",
+    "as_tensor",
     "cpu_device",
     "get_device",
     "to_device",
@@ -144,6 +145,27 @@ def compute_device(*arrays) -> torch.device:
     return get_default_device().ptdevice
 
 
+# torch has no CPU comparison, arithmetic or flip for these unsigned types
+# (numpy and jax do); the signed type twice as wide holds every value exactly.
+_WIDEN = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def as_tensor(array, device=None) -> torch.Tensor:
+    """``array`` (ndarray or tensor) as a tensor on ``device`` (default: a
+    tensor stays where it is, an ndarray goes to the CPU without a copy).
+
+    The one place a host array becomes a tensor: uint16 becomes int32 and
+    uint32 becomes int64, after the move, so the narrow bytes cross to the
+    card. Host (numpy) arrays keep their dtype.
+    """
+    if not isinstance(array, torch.Tensor):
+        array = torch.from_numpy(np.ascontiguousarray(array))
+    if device is not None:
+        array = array.to(device)
+    wide = _WIDEN.get(array.dtype)
+    return array if wide is None else array.to(wide)
+
+
 def get_device(array) -> Device:
     """The :class:`Device` that ``array`` (ndarray, tensor or volume) lives on."""
     if isinstance(getattr(array, "device", None), Device):
@@ -166,4 +188,4 @@ def to_device(array, device: Union[int, str, Device, torch.device], **kwargs) ->
         return array.cpu().numpy() if isinstance(array, torch.Tensor) else np.asarray(array)
     if not isinstance(array, torch.Tensor):
         array = torch.from_numpy(np.ascontiguousarray(array))
-    return array.to(device.ptdevice, **kwargs)
+    return as_tensor(array.to(device.ptdevice, **kwargs))

@@ -10,11 +10,19 @@ opaque object arrays.
   - spatial-first slicing ``__getitem__`` slices headers and affine.
   - arithmetic goes through numpy's ufunc protocol; for tensor-backed
     volumes each ufunc is dispatched to the torch function of the same
-    meaning, on the tensor's device.
+    meaning, on the tensor's device. numpy functions (``np.stack``,
+    ``np.where``, ``np.clip``, reductions...) go through
+    ``__array_function__`` to :mod:`dosma_tpu_torch.core.numpy_routines`,
+    which computes a tensor-backed volume with torch on its device.
+  - a tensor never holds uint16 or uint32 pixels: they are widened to int32
+    and int64 where a host array becomes a tensor (``core/device.py::
+    as_tensor``), since torch has no CPU comparison, arithmetic or flip for
+    them. Host volumes keep their dtype, as in ``dosma_tpu``.
 """
 
 from __future__ import annotations
 
+import warnings
 from copy import deepcopy
 from numbers import Number
 from typing import Optional, Sequence, Tuple, Union
@@ -24,10 +32,12 @@ import torch
 from numpy.lib.mixins import NDArrayOperatorsMixin
 
 from dosma_tpu_torch.core import orientation as stdo
-from dosma_tpu_torch.core.device import Device, cpu_device, get_device
+from dosma_tpu_torch.core.device import Device, as_tensor, cpu_device, get_device
 from dosma_tpu_torch.defaults import SCANNER_ORIGIN_DECIMAL_PRECISION
 
 __all__ = ["MedicalVolume"]
+
+_NoValue = object()
 
 # numpy ufunc name -> torch function name, where the two differ.
 _UFUNC_TO_TORCH = {
@@ -76,13 +86,30 @@ class MedicalVolume(NDArrayOperatorsMixin):
     """
 
     def __init__(self, volume, affine, headers=None):
-        if not _is_tensor(volume) and not isinstance(volume, np.memmap):
+        if _is_tensor(volume):
+            volume = as_tensor(volume)
+        elif not isinstance(volume, np.memmap):
             volume = np.asarray(volume)
         self._volume = volume
         self._affine = np.array(affine, dtype=np.float64)
         if self._affine.shape != (4, 4):
             raise ValueError(f"`affine` must be 4x4, got shape {self._affine.shape}")
         self._headers = self._validate_and_format_headers(headers) if headers is not None else None
+
+    # ------------------------------------------------------------------
+    # I/O
+    # ------------------------------------------------------------------
+    def save_volume(self, file_path: str, data_format=None):
+        """Write the volume in ``data_format`` (default: the preference
+        ``data/format``); a volume on a card is copied to the host first."""
+        from dosma_tpu_torch.core.io import format_io_utils
+        from dosma_tpu_torch.core.io.format_io import ImageDataFormat
+        from dosma_tpu_torch.defaults import preferences
+
+        if data_format is None:
+            data_format = ImageDataFormat[preferences.get("data/format")]
+        writer = format_io_utils.get_writer(data_format)
+        writer.save(self.cpu() if self.device != cpu_device else self, file_path)
 
     # ------------------------------------------------------------------
     # Reformatting
@@ -166,6 +193,14 @@ class MedicalVolume(NDArrayOperatorsMixin):
     # ------------------------------------------------------------------
     # Comparisons
     # ------------------------------------------------------------------
+    def is_identical(self, mv) -> bool:
+        """True if same pixel spacing, orientation, scanner origin, and values."""
+        if not isinstance(mv, MedicalVolume):
+            raise TypeError("`mv` must be a MedicalVolume.")
+        if self.device != mv.device:
+            raise RuntimeError(f"Expected device {self.device}, got {mv.device}.")
+        return self.is_same_dimensions(mv) and bool((mv.volume == self.volume).all())
+
     def _allclose_spacing(self, mv, precision: int = None, ignore_origin: bool = False) -> bool:
         if precision is not None:
             tol = 10 ** (-precision)
@@ -239,13 +274,10 @@ class MedicalVolume(NDArrayOperatorsMixin):
         device = Device(device)
         if device == self.device:
             return self
-        vol = self._volume
         if device == cpu_device:
-            volume = vol.cpu().numpy()
+            volume = self._volume.cpu().numpy()
         else:
-            if not _is_tensor(vol):
-                vol = torch.from_numpy(np.ascontiguousarray(vol))
-            volume = vol.to(device.ptdevice)
+            volume = as_tensor(self._volume, device.ptdevice)
         return self._partial_clone(volume=volume)
 
     def cpu(self) -> "MedicalVolume":
@@ -258,6 +290,79 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if flatten and self._headers is not None:
             return self._headers.flatten()
         return self._headers
+
+    def get_metadata(self, key, dtype=None, default=_NoValue):
+        """The value of ``key`` in the first header, cast by ``dtype`` if
+        given; ``default`` when the key is missing, else ``KeyError``."""
+        if self._headers is None:
+            raise RuntimeError("No headers found. MedicalVolume must be initialized with `headers`")
+        headers = self.headers(flatten=True)
+        if key not in headers[0]:
+            if default is not _NoValue:
+                return default
+            raise KeyError(f"{key} not found in header")
+        val = headers[0][key].value
+        if dtype is not None:
+            val = dtype(val)
+        return val
+
+    def set_metadata(self, key, value, force: bool = False):
+        """Set ``key`` on every header. A missing key, or missing headers, are
+        created only with ``force=True``."""
+        from dosma_tpu_torch.core.io.dicom import Dataset
+
+        if self._headers is None:
+            if not force:
+                raise ValueError(
+                    "No headers found. To generate headers and write keys, `force` must be True."
+                )
+            self._headers = self._validate_and_format_headers([Dataset()])
+            warnings.warn(
+                "Headers were generated and may not contain all attributes "
+                "required to save the volume in DICOM format."
+            )
+        for h in self.headers(flatten=True):
+            h.set_value(key, value, create=force)
+
+    # ------------------------------------------------------------------
+    # Reductions & elementwise conveniences (numpy_routines)
+    # ------------------------------------------------------------------
+    def round(self, decimals=0, affine=False) -> "MedicalVolume":
+        from dosma_tpu_torch.core.numpy_routines import around
+
+        return around(self, decimals, affine)
+
+    def sum(self, axis=None, dtype=None, out=None, keepdims=False, initial=_NoValue,
+            where=_NoValue):
+        from dosma_tpu_torch.core.numpy_routines import sum_np
+
+        if out is not None:
+            raise ValueError("`out` must be None")
+        return sum_np(self, axis=axis, dtype=dtype, keepdims=keepdims)
+
+    def mean(self, axis=None, dtype=None, out=None, keepdims=False, where=_NoValue):
+        from dosma_tpu_torch.core.numpy_routines import mean_np
+
+        if out is not None:
+            raise ValueError("`out` must be None")
+        return mean_np(self, axis=axis, dtype=dtype, keepdims=keepdims)
+
+    def std(self, axis=None, dtype=None, out=None, ddof=0, keepdims=False):
+        from dosma_tpu_torch.core.numpy_routines import std
+
+        if out is not None:
+            raise ValueError("`out` must be None")
+        return std(self, axis=axis, dtype=dtype, ddof=ddof, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        from dosma_tpu_torch.core.numpy_routines import amin
+
+        return amin(self, axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        from dosma_tpu_torch.core.numpy_routines import amax
+
+        return amax(self, axis=axis, keepdims=keepdims)
 
     # ------------------------------------------------------------------
     # Properties
@@ -343,7 +448,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if isinstance(input, np.ndarray):
             if device != cpu_device:
                 raise RuntimeError(f"Expected device {device} but got device {cpu_device}")
-            return torch.from_numpy(input) if _is_tensor(self._volume) else input
+            return as_tensor(input) if _is_tensor(self._volume) else input
         if _is_tensor(input):
             if Device(input.device) != device:
                 raise RuntimeError(f"Expected device {device} but got device {input.device}")
@@ -353,9 +458,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
                 raise RuntimeError(f"Expected device {device} but got device {input.device}")
             self.is_same_dimensions(input, err=True)
             vol = input._volume
-            if _is_tensor(self._volume) and not _is_tensor(vol):
-                vol = torch.from_numpy(np.ascontiguousarray(vol))
-            return vol
+            return as_tensor(vol) if _is_tensor(self._volume) else vol
         return NotImplemented
 
     def _check_reduce_axis(self, axis) -> Optional[Union[int, Tuple[int, ...]]]:
@@ -374,6 +477,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
         kwargs["axis"] = reduce_axis
         if not isinstance(reduce_axis, tuple):
             reduce_axis = (reduce_axis,)
+        kwargs = {k: v for k, v in kwargs.items() if v is not _NoValue}
         volume = func(*inputs, **kwargs)
 
         if np.isscalar(volume) or getattr(volume, "ndim", 0) == 0:
@@ -421,6 +525,15 @@ class MedicalVolume(NDArrayOperatorsMixin):
         affine = _slice_affine(self._affine, _slice, self.shape)
         return self._partial_clone(volume=volume, affine=affine, headers=headers)
 
+    def __setitem__(self, _slice, value):
+        if isinstance(value, MedicalVolume):
+            image = self[_slice]
+            value.is_same_dimensions(image, err=True)
+            value = value._volume
+        if _is_tensor(self._volume) and isinstance(value, np.ndarray):
+            value = as_tensor(value, self._volume.device)
+        self._volume[_slice] = value
+
     def __repr__(self) -> str:
         nltb = "\n  "
         return (
@@ -437,7 +550,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
             self.is_same_dimensions(other, err=True)
             other = other.volume
         if _is_tensor(self._volume) and isinstance(other, np.ndarray):
-            other = torch.from_numpy(other)
+            other = as_tensor(other)
         result = getattr(self._volume, opname)(other)
         if result is NotImplemented:
             raise TypeError(f"{opname} not supported for {type(other)}")
@@ -529,6 +642,15 @@ class MedicalVolume(NDArrayOperatorsMixin):
         else:
             reduce_fn = ufunc.reduce
         return self._reduce_array(reduce_fn, *_inputs, **kwargs)
+
+    def __array_function__(self, func, types, args, kwargs):
+        from dosma_tpu_torch.core.numpy_routines import _HANDLED_NUMPY_FUNCTIONS
+
+        if func not in _HANDLED_NUMPY_FUNCTIONS:
+            return NotImplemented
+        if not all(issubclass(t, (MedicalVolume, self.__class__)) for t in types):
+            return NotImplemented
+        return _HANDLED_NUMPY_FUNCTIONS[func](*args, **kwargs)
 
 
 def _to_object_array(headers) -> np.ndarray:

@@ -1,21 +1,31 @@
 """Quantitative value wrappers: T1ρ / T2 / T2* maps + regional metrics.
 
-Counterpart of ``dosma_tpu/core/quant_vals.py``. The regional reductions
-(finite and bounds mask, per-label Mean / Std / Median / # Voxels) run in
-torch on the map's own device and come back as plain rows;
-:meth:`QuantitativeValue.to_metrics` wraps those rows in a pandas DataFrame
-(pandas is imported there only). Saving and loading maps waits for the
-port's NIfTI I/O.
+Counterpart of ``dosma_tpu/core/quant_vals.py``. A ``QuantitativeValue``
+holds a parameter map and named companion volumes (e.g. r²), and saves
+and loads them as NIfTI under ``dir/NAME/NAME.nii.gz``.
+
+Regional metrics (finite and bounds mask, per-label Mean / Std / Median /
+# Voxels, and any reduction a caller passes in ``fns``) come back as plain
+rows from :meth:`QuantitativeValue.metric_rows`;
+:meth:`QuantitativeValue.to_metrics` wraps them in a pandas DataFrame
+(pandas is imported there only). The statistics are torch float64
+reductions on the map's device (a host map's on the CPU): a mask's voxels
+are gathered there once (:func:`dosma_tpu_torch.ops.analytics.
+gather_voxels`) and split per label there, and only the statistics cross
+to the host, unless ``fns`` need each region's values.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from enum import Enum
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from dosma_tpu_torch.core.device import as_tensor
 from dosma_tpu_torch.core.med_volume import MedicalVolume
 
 __all__ = ["QuantitativeValueType", "QuantitativeValue", "T1Rho", "T2", "T2Star", "get_qv"]
@@ -27,32 +37,33 @@ class QuantitativeValueType(Enum):
     T2_STAR = 3
 
 
-def _as_tensor(vol, device: torch.device) -> torch.Tensor:
-    if not isinstance(vol, torch.Tensor):
-        vol = torch.from_numpy(np.ascontiguousarray(vol))
-    return vol.to(device)
-
-
-def _summary(values: torch.Tensor) -> Tuple[float, float, float]:
-    """Mean, population std and median (the mean of the two middle values
-    for an even count, as ``np.nanmedian``) of a 1-D tensor of finite values."""
+def _summary(values: torch.Tensor, fns) -> dict:
+    """Mean / population Std / Median / # Voxels of a 1-D tensor of valid
+    values, reduced in float64 on its device (the median is the mean of
+    the two middle values for an even count, as ``np.nanmedian``), and
+    each of ``fns`` on the values as a host array."""
     n = values.numel()
-    if n == 0:
-        return np.nan, np.nan, np.nan
-    v = values.to(torch.float64)
-    mean = v.mean()
-    std = torch.sqrt(((v - mean) ** 2).mean())
-    ordered = torch.sort(values).values
-    k = n // 2
-    median = ordered[k] if n % 2 else (ordered[k - 1] + ordered[k]) / 2
-    return float(mean), float(std), float(median)
+    row = {"Mean": np.nan, "Std": np.nan, "Median": np.nan}
+    if n:
+        v = values.to(torch.float64)
+        mean = v.mean()
+        std = torch.sqrt(((v - mean) ** 2).mean())
+        median = torch.sort(values).values[(n - 1) // 2: n // 2 + 1].to(torch.float64).mean()
+        row = dict(zip(row, torch.stack([mean, std, median]).tolist()))
+    row["# Voxels"] = n
+    if fns:
+        host = values.cpu().numpy()
+        for fname, fn in fns.items():
+            row[fname] = fn(host)
+    return row
 
 
 class QuantitativeValue:
-    """A volumetric quantitative parameter map.
+    """A volumetric quantitative parameter map plus companion volumes.
 
     Concrete subclasses (``T1Rho``, ``T2``, ``T2Star``) define ``ID``/``NAME``
-    and are collected automatically into :attr:`_registry` for lookup.
+    and are collected automatically into :attr:`_registry` for lookup and
+    directory-scan loading.
     """
 
     ID = 0
@@ -70,6 +81,48 @@ class QuantitativeValue:
         if volumetric_map is not None and not isinstance(volumetric_map, MedicalVolume):
             raise TypeError("`volumetric_map` must be of type MedicalVolume")
         self.volumetric_map = volumetric_map
+        self.additional_volumes: Dict[str, MedicalVolume] = {}
+
+    # ------------------------------------------------------------------
+    def _map_path(self, dir_path: str, suffix: str = "") -> str:
+        stem = f"{self.NAME}-{suffix}" if suffix else self.NAME
+        return os.path.join(dir_path, self.NAME, f"{stem}.nii.gz")
+
+    def save_data(self, dir_path: str, data_format=None):
+        """Write the map and companion volumes under ``dir_path/NAME/``.
+
+        Always NIfTI: DICOM's integer pixel storage would truncate the
+        floating-point parameter values (another ``data_format`` warns).
+        """
+        from dosma_tpu_torch.core.io.format_io import ImageDataFormat
+
+        if data_format is not None and data_format != ImageDataFormat.nifti:
+            warnings.warn(
+                "Due to bit depth issues, only nifti format is supported for quantitative "
+                "values. Writing as nifti file..."
+            )
+        data_format = ImageDataFormat.nifti
+        if self.volumetric_map is not None:
+            self.volumetric_map.save_volume(self._map_path(dir_path), data_format=data_format)
+        for name, vol in self.additional_volumes.items():
+            vol.save_volume(self._map_path(dir_path, suffix=name), data_format=data_format)
+
+    def load_data(self, dir_path: str):
+        from dosma_tpu_torch.core.io import format_io_utils as fio_utils
+
+        self.volumetric_map = fio_utils.generic_load(
+            self._map_path(dir_path), expected_num_volumes=1
+        )
+
+    def add_additional_volume(self, name: str, volume: MedicalVolume):
+        if not isinstance(volume, MedicalVolume):
+            raise TypeError("`volume` must be of type MedicalVolume")
+        self.additional_volumes[name] = volume
+
+    def to(self, device):
+        self.volumetric_map = self.volumetric_map.to(device)
+        self.additional_volumes = {k: v.to(device) for k, v in self.additional_volumes.items()}
+        return self
 
     # ------------------------------------------------------------------
     def metric_rows(
@@ -78,37 +131,39 @@ class QuantitativeValue:
         labels: Optional[Dict[int, str]] = None,
         bounds: Optional[Tuple[float, float]] = None,
         closed: str = "right",
+        fns: Optional[Dict[str, Callable]] = None,
     ) -> List[dict]:
-        """Per-region summary statistics as plain rows, reduced on the map's device.
+        """Per-region summary statistics as plain rows.
 
         One row per mask label plus a ``total`` row (without a mask, only
         ``total`` over every valid voxel). Valid voxels are finite and
         inside ``bounds`` (``closed`` picks the inclusive ends). Each row
-        holds Category / Mean / Std / Median / # Voxels.
+        holds Category / Mean / Std / Median / # Voxels and one entry per
+        reduction of ``fns``, which receives the region's values as a host
+        array.
         """
+        from dosma_tpu_torch.ops.analytics import gather_voxels
+
         vol = self.volumetric_map.volume
-        device = vol.device if isinstance(vol, torch.Tensor) else torch.device("cpu")
-        volume = _as_tensor(vol, device)
-        valid = torch.isfinite(volume) & self._bounds_mask(volume, bounds, closed)
-
+        volume = as_tensor(vol, vol.device if isinstance(vol, torch.Tensor) else "cpu")
         if mask is None:
-            regions = [("total", valid)]
+            regions = [("total", volume[torch.isfinite(volume)
+                                        & self._bounds_mask(volume, bounds, closed)])]
         else:
-            mask_arr = _as_tensor(mask.reformat(self.volumetric_map.orientation).volume, device)
+            # One gather of every voxel with mask > 0; validity depends on
+            # the value alone, so it is tested on the gathered vector.
+            mask_t = as_tensor(mask.reformat(self.volumetric_map.orientation).volume,
+                               volume.device).reshape(-1)
+            flat = torch.nonzero(mask_t > 0).squeeze(1)
+            region_labels = mask_t[flat]
             if labels is None:
-                labels = {int(v): f"label_{int(v)}" for v in torch.unique(mask_arr).tolist() if v > 0}
-            # Invalid voxels leave every region, as the JAX package zeroes them.
-            mask_arr = torch.where(valid, mask_arr, torch.zeros_like(mask_arr))
-            regions = [(name, mask_arr == label) for label, name in labels.items()]
-            regions.append(("total", mask_arr > 0))
-
-        rows = []
-        for name, selected in regions:
-            values = volume[selected]
-            mean, std, median = _summary(values)
-            rows.append({"Category": name, "Mean": mean, "Std": std, "Median": median,
-                         "# Voxels": int(values.numel())})
-        return rows
+                labels = {int(v): f"label_{int(v)}" for v in torch.unique(region_labels).tolist()}
+            values = gather_voxels(volume, flat)
+            valid = torch.isfinite(values) & self._bounds_mask(values, bounds, closed)
+            values, region_labels = values[valid], region_labels[valid]
+            regions = [(name, values[region_labels == label]) for label, name in labels.items()]
+            regions.append(("total", values))
+        return [{"Category": name, **_summary(values, fns)} for name, values in regions]
 
     def to_metrics(
         self,
@@ -116,11 +171,12 @@ class QuantitativeValue:
         labels: Optional[Dict[int, str]] = None,
         bounds: Optional[Tuple[float, float]] = None,
         closed: str = "right",
+        fns: Optional[Dict[str, Callable]] = None,
     ):
         """:meth:`metric_rows` as a pandas DataFrame."""
         import pandas as pd
 
-        return pd.DataFrame(self.metric_rows(mask, labels, bounds, closed))
+        return pd.DataFrame(self.metric_rows(mask, labels, bounds, closed, fns))
 
     @staticmethod
     def _bounds_mask(volume: torch.Tensor, bounds, closed: str) -> torch.Tensor:
@@ -145,6 +201,24 @@ class QuantitativeValue:
             if qv_id in (cls.NAME, cls.NAME.lower(), cls.ID):
                 return cls()
         raise ValueError(f"Quantitative Value with name or id {qv_id} not found")
+
+    @staticmethod
+    def save_qvs(dir_path: str, qvs):
+        for qv in qvs:
+            if not isinstance(qv, QuantitativeValue):
+                raise TypeError("All members of `qvs` must be instances of QuantitativeValue")
+            qv.save_data(dir_path)
+
+    @staticmethod
+    def load_qvs(dir_path: str):
+        """Load every registered QV that has a saved map under ``dir_path``."""
+        found = []
+        for cls in QuantitativeValue._registry.values():
+            qv = cls()
+            if os.path.isfile(qv._map_path(dir_path)):
+                qv.load_data(dir_path)
+                found.append(qv)
+        return found
 
     @property
     def qv_type(self) -> QuantitativeValueType:

@@ -4,7 +4,8 @@ Counterpart of ``dosma_tpu/core/registration.py`` for chains of matrix
 stages (translation, rigid, affine); chains with a B-spline stage raise
 until ``ops/bspline.py`` is ported (ROADMAP queue 1, item 7). Contracts:
 
-- inputs are MedicalVolumes or NIfTI paths; outputs land in
+- inputs are MedicalVolumes or paths (NIfTI files, DICOM series directories,
+  read by ``format_io_utils.generic_load``); outputs land in
   ``output_path/moving-<idx>/`` as ``TransformParameters.<stage>.json`` and,
   unless ``save_volumes=False``, ``result.<stage>.nii.gz``;
 - sequential parameter stages compose into one transform and one resample,
@@ -40,7 +41,8 @@ import numpy as np
 import torch
 
 from dosma_tpu_torch.core.device import compute_device
-from dosma_tpu_torch.core.io.nifti_io import NiftiReader, NiftiWriter, is_nifti
+from dosma_tpu_torch.core.io import format_io_utils
+from dosma_tpu_torch.core.io.nifti_io import NiftiWriter
 from dosma_tpu_torch.core.med_volume import MedicalVolume
 from dosma_tpu_torch.ops.registration import (
     RegistrationParams,
@@ -101,12 +103,7 @@ _PRESET_NAMES = {
 def _load_volume(x: MedVolOrPath) -> MedicalVolume:
     if isinstance(x, MedicalVolume):
         return x
-    if is_nifti(x):
-        return NiftiReader().load(str(x))
-    raise NotImplementedError(
-        f"Cannot read {x!r}: dosma_tpu_torch reads NIfTI paths only so far; DICOM and "
-        "the format dispatch are ROADMAP queue 1, item 3 (I/O)"
-    )
+    return format_io_utils.generic_load(str(x), expected_num_volumes=1)
 
 
 def _load_stage_params(path_or_name) -> RegistrationParams:

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc``, and its host C++ libraries
+with ``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with a
 plain C interface, under ``dosma_tpu_torch/_build/`` (listed in
@@ -6,7 +7,9 @@ plain C interface, under ``dosma_tpu_torch/_build/`` (listed in
 the compiler flags, so an edited source is rebuilt and a stale library is
 never loaded. Generated sources (the generic LM kernel, one per model) are
 written beside their libraries and cached the same way, under the hash of
-the generated text, the headers and the flags. A failed build or load
+the generated text, the headers and the flags. The host libraries
+(``csrc/host/<name>.cpp``: the DICOM file reader and pixel codecs) are
+built the same way by :func:`load_host_library`. A failed build or load
 raises: there is no fallback.
 """
 
@@ -22,11 +25,13 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "load_generated"]
+__all__ = ["load_library", "load_generated", "load_host_library"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR / "_build"
+_HOST_SRC = _CSRC / "host"
+_HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,8 +70,16 @@ def _sources_digest(name: str, flags: tuple) -> str:
     return _digest(flags, path.name, path.read_bytes())
 
 
-def _load(src: Path, stem: str, flags: tuple) -> ctypes.CDLL:
-    """Compile ``src`` into ``_build/lib<stem>.so`` unless it exists; load it."""
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: put g++ on PATH to build the host libraries")
+    return found
+
+
+def _load(src: Path, stem: str, command: list) -> ctypes.CDLL:
+    """Compile ``src`` with ``command`` (compiler and flags) into
+    ``_build/lib<stem>.so`` unless it exists; load it."""
     out_dir = _BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / f"lib{stem}.so"
@@ -78,13 +91,12 @@ def _load(src: Path, stem: str, flags: tuple) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [_nvcc(), *flags, "-I", str(_CSRC), "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
+            proc = subprocess.run([*command, "-o", tmp, str(src)], capture_output=True, text=True)
             (out_dir / f"{stem}.log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stderr}")
+                raise RuntimeError(
+                    f"{Path(command[0]).name} failed to build {src.name}:\n{proc.stderr}"
+                )
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):
@@ -111,7 +123,7 @@ def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
     src = _CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source {src} missing")
-    return _load(src, f"{name}-{_sources_digest(name, flags)}", flags)
+    return _load(src, f"{name}-{_sources_digest(name, flags)}", _nvcc_command(flags))
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,4 +140,20 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
         with os.fdopen(fd, "w") as f:
             f.write(source)
         os.replace(tmp, src)
-    return _load(src, stem, flags)
+    return _load(src, stem, _nvcc_command(flags))
+
+
+def _nvcc_command(flags: tuple) -> list:
+    return [_nvcc(), *flags, "-I", str(_CSRC)]
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/host/<name>.cpp`` with g++ if its library is not built
+    yet, and load it. The file name carries a hash of the source and flags."""
+    src = _HOST_SRC / f"{name}.cpp"
+    if not src.is_file():
+        raise FileNotFoundError(f"host library source {src} missing")
+    h = hashlib.sha256(" ".join(_HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    return _load(src, f"{name}-{h.hexdigest()[:16]}", [_cxx(), *_HOST_FLAGS])

@@ -1,0 +1,99 @@
+"""Tests of the port that need a CUDA card; each skips without one.
+
+This file imports neither jax nor the JAX package, so that it runs on the
+machine with the card, which has neither:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports jax).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import dosma_tpu_torch as dt
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _write_series(path, shape=(64, 48, 6), echo_times=(10.0, 20.0, 30.0, 40.0)):
+    """A uint16 multi-echo series written by the port's DicomWriter; the
+    pixels, (rows, cols, slices, echoes)."""
+    from dosma_tpu_torch.core.io.dicom import Dataset
+    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
+
+    rs = np.random.RandomState(0)
+    pixels = (rs.rand(*shape, len(echo_times)) * 60000).astype(np.uint16)
+    headers = np.empty((1, 1, shape[2], len(echo_times)), dtype=object)
+    series = generate_uid()
+    for e, te in enumerate(echo_times):
+        for s in range(shape[2]):
+            ds = Dataset()
+            ds.SOPInstanceUID = generate_uid()
+            ds.SeriesInstanceUID = series
+            ds.Modality = "MR"
+            ds.InstanceNumber = e * shape[2] + s + 1
+            ds.EchoNumbers = e + 1
+            ds.EchoTime = te
+            ds.Rows, ds.Columns = shape[0], shape[1]
+            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
+            ds.PixelRepresentation = 0
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelSpacing = [0.5, 0.5]
+            ds.SliceThickness = 2.0
+            ds.ImagePositionPatient = [0.0, 0.0, 2.0 * s]
+            ds.ImageOrientationPatient = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+            headers[0, 0, s, e] = ds
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    dt.DicomWriter().save(dt.MedicalVolume(pixels, affine, headers=headers), path)
+    return pixels
+
+
+@pytest.mark.cuda
+def test_load_to_device_lands_on_the_card(tmp_path, card):
+    pixels = _write_series(str(tmp_path))
+    host = dt.DicomReader().load(str(tmp_path))
+    # The second load reuses the pinned buffers the first one dropped.
+    for vols in [dt.load_to_device(str(tmp_path), device=card) for _ in range(2)]:
+        assert len(vols) == len(host) == pixels.shape[-1]
+        for e, (v, h) in enumerate(zip(vols, host)):
+            assert v.A.device == card and v.A.dtype == torch.int32
+            # usable on the caller's stream at once
+            assert torch.equal(v.A, torch.from_numpy(pixels[..., e]).to(card).to(torch.int32))
+            np.testing.assert_array_equal(v.affine, h.affine)
+            assert v.get_metadata("EchoTime") == h.get_metadata("EchoTime")
+
+
+@pytest.mark.cuda
+def test_card_volumes_fit_reduce_and_write(tmp_path, card):
+    """uint16 pixels arrive widened, and the ops that raised on unsigned
+    tensors (flip, comparison, arithmetic) work on the card."""
+    pixels = _write_series(str(tmp_path / "series"))
+    vols = dt.load_to_device(str(tmp_path / "series"), device=card)
+    flipped = vols[0].reformat(vols[0].orientation[::-1])
+    back = flipped.reformat(vols[0].orientation)
+    assert torch.equal(back.A, vols[0].A)
+    assert int((vols[0] > 30000).A.sum()) == int((pixels[..., 0] > 30000).sum())
+    total = vols[0] + vols[1]
+    assert torch.equal(total.A.cpu(), torch.from_numpy(pixels[..., 0].astype(np.int32)
+                                                       + pixels[..., 1]))
+    mask = dt.MedicalVolume((pixels[..., 0] > 20000).astype(np.uint16), vols[0].affine)
+    tc, _ = dt.MonoExponentialFit(tc0="polyfit").fit(
+        [v.get_metadata("EchoTime") for v in vols], vols)
+    rows = dt.T2(tc).metric_rows(mask)
+    assert rows[-1]["# Voxels"] <= int(mask.A.sum())
+    dt.DicomWriter().save(vols[1], str(tmp_path / "echo2"))
+    again = dt.DicomReader().load(str(tmp_path / "echo2"))[0]
+    np.testing.assert_array_equal(again.A, pixels[..., 1])
+    assert os.path.isdir(tmp_path / "echo2")

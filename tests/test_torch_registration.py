@@ -423,7 +423,7 @@ def test_register_options_masks_rtype_and_sequential(pair, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
         dt.register(dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A), "bspline",
                     output_path=str(tmp_path / "b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    with pytest.raises(FileNotFoundError, match="series_dir"):  # read as a DICOM series
         dt.register(dt.MedicalVolume(fixed, A), str(tmp_path / "series_dir"), "rigid",
                     output_path=str(tmp_path / "c"))
 
