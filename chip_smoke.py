@@ -91,6 +91,28 @@ Phases (any failure raises and exits non-zero):
      from the directory to metric rows (median of 3) with its breakdown:
      read and parse, H2D pinned against pageable, fit (with one header
      copy's time and a cProfile of one fit by own time), metrics, write.
+ 10. knee segmentation at full width: bench.py's config4 model,
+     IWOAIOAIUnet2DNormalized (4 classes, whitened with eps 0), with the
+     full-width U-Net (34,597,892 parameters, He-normal from
+     RandomState(0)) set through Unet2D.params, on an OAI DESS knee of
+     384x384x160 sagittal voxels of 0.3x0.3x0.7 mm (RandomState(4) x 1000,
+     float32), batches of preferences.segmentation_batch_size (64), with
+     cudnn.allow_tf32 True for the whole phase (PyTorch's default). Checks:
+     (1) the card's float32 probabilities on 2 slices within SEG_F32_TOL of
+     the port's float64 forward on the CPU, a mask differing only within it
+     of 0.5 (fails if TF32 reaches the convolutions); (2) generate_mask of
+     the host volume equals the threshold of the card's probabilities on
+     those slices for fc, tc, pc and men; (3) the volume already on the
+     card gives the same masks; (4) one generate_mask moves the packed mask
+     (384*384*160*4 bits) and at most 1 KB more from the card
+     (torch.profiler's memcpy events); (5) bfloat16's max |Δp| against
+     float32 and the share of mask voxels that differ stay within
+     SEG_BF16_MAX_ABS_ERR and SEG_BF16_MASK_SHARE. Prints the warm
+     generate_mask walls (median of 3, host and card volume), slices/s, the
+     forward alone (CUDA events a batch), the float32 bound (the
+     convolutions' operations over 67 TFLOP/s) and the bfloat16 one, the
+     idle share of one call, bfloat16's times and the peak memory, and a
+     "segmentation" JSON line before the kernels line.
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -99,11 +121,12 @@ also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
-Each path (phases 4, 5, 6, 7, 9) runs with every launch count set to 0
-just before it and read just after. The last two lines are one JSON object
-with every kernel (its bound: the larger of the bytes it must move over
-3.35 TB/s and its float32 operations over 67 TFLOP/s) and the result
-object. It imports nothing of JAX.
+Each path (phases 4, 5, 6, 7, 9, 10) runs with every launch count set to 0
+just before it and read just after (phase 10's path launches none). The
+last three lines are the segmentation object, one JSON object with every
+kernel (its bound: the larger of the bytes it must move over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s) and the result object. It imports
+nothing of JAX.
 """
 
 import argparse
@@ -152,6 +175,18 @@ WARP_ANGLE, WARP_SHIFT = 0.07, (1.2, -0.7, 0.4)
 # float32 (non-tensor-core) rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12  # dense, on the tensor cores
+
+# Phase 10: bench.py's config4 model (IWOAIOAIUnet2DNormalized, 4 classes)
+# on an OAI DESS knee (bench.py:457-461), 160 sagittal slices of 384x384.
+SEG_SPACING = (0.3, 0.3, 0.7)
+SEG_CHECK_SLICES = (5, 150)  # in the first and the last batch of 64
+SEG_F32_TOL = 1e-4  # |Δp| of the card's float32 against float64 on the CPU
+# bfloat16 against float32: max |Δp| on the check slices' batches, and the
+# share of mask voxels that differ. Bounds: about twice this phase's first
+# full run (0.01283 and 0.001194 on an NVIDIA H100 80GB HBM3 at 700 W).
+SEG_BF16_MAX_ABS_ERR = 0.03
+SEG_BF16_MASK_SHARE = 0.003
 
 # The point-per-thread warp kernel that the staged one replaced, on an
 # NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md's kernel table):
@@ -1621,11 +1656,295 @@ def phase_dicom(dt, dev, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 10: knee segmentation at full width
+# ----------------------------------------------------------------------
+def he_normal_unet_params(rs, num_classes, features, in_channels=1):
+    """U-Net parameters in the layout of ``init_unet2d_params`` (Keras
+    kernels, zero biases, identity BatchNorm), kernels He-normal from the
+    numpy RandomState ``rs``."""
+    def conv(k, cin, cout, transpose=False):
+        w = (rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+        w = np.ascontiguousarray(w.transpose(0, 1, 3, 2)) if transpose else w
+        return {"w": w, "b": np.zeros(cout, np.float32)}
+
+    def bn(f):
+        return {"gamma": np.ones(f, np.float32), "beta": np.zeros(f, np.float32),
+                "mean": np.zeros(f, np.float32), "var": np.ones(f, np.float32)}
+
+    params = {"down": [], "up": [None] * (len(features) - 1), "final": None}
+    cin = in_channels
+    for f in features:
+        params["down"].append({"conv1": conv(3, cin, f), "conv2": conv(3, f, f), "bn": bn(f)})
+        cin = f
+    for d in range(len(features) - 2, -1, -1):
+        f = features[d]
+        params["up"][d] = {"convT": conv(3, features[d + 1], f, transpose=True),
+                           "conv1": conv(3, 2 * f, f), "conv2": conv(3, f, f), "bn": bn(f)}
+    params["final"] = conv(1, features[0], num_classes)
+    return params
+
+
+def unet_flops(h, w, features, num_classes, in_channels=1):
+    """Multiply-adds x 2 of the U-Net's convolutions on one h x w slice
+    (a transpose convolution: 9 products per input pixel, input and output
+    channel); the elementwise work is not counted."""
+    flops, sizes, cin = 0, [], in_channels
+    for d, f in enumerate(features):
+        flops += 2 * 9 * (cin + f) * f * h * w
+        sizes.append((h, w))
+        cin = f
+        if d < len(features) - 1:
+            stride = 2 if h % 2 == 0 else 3
+            h, w = h // stride, w // stride
+    for d in range(len(features) - 2, -1, -1):
+        f = features[d]
+        flops += 2 * 9 * features[d + 1] * f * h * w
+        h, w = sizes[d]
+        flops += 2 * 9 * (2 * f + f) * f * h * w
+    return flops + 2 * features[0] * num_classes * h * w
+
+
+def d2h_bytes(fn):
+    """(bytes, copies) the card copied to the host while ``fn`` ran, from
+    torch.profiler's memcpy events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+    check(all("bytes" in e.get("args", {}) for e in copies), "a memcpy event without bytes")
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+def phase_segmentation(dt, dev, card):
+    """Phase 10 (see the module docstring). TF32 stays allowed for the
+    whole phase (PyTorch's default), so check 1 fails if it reaches the
+    float32 convolutions."""
+    from dosma_tpu_torch.models import IWOAIOAIUnet2DNormalized
+    from dosma_tpu_torch.models.unet2d import FEATURES, UNet2D, cudnn_exact
+    from dosma_tpu_torch.models.unet2d import _unpack as unpack
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    prev_precision = dt.preferences.segmentation_precision
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        arr = np.random.RandomState(4).rand(*KNEE_SHAPE).astype(np.float32) * 1000
+        host = dt.MedicalVolume(arr, dt.to_affine(dt.SAGITTAL, SEG_SPACING))
+        params = he_normal_unet_params(np.random.RandomState(0), 4, FEATURES)
+        dt.preferences.set("segmentation/precision", "float32")
+        model = IWOAIOAIUnet2DNormalized((KNEE_SHAPE[0], KNEE_SHAPE[1], 1), None,
+                                         force_weights=True)
+        model.seg_model.params = params
+        B, S = model.batch_size, KNEE_SHAPE[2]
+        blocks = params["down"] + params["up"] + [{"final": params["final"]}]
+        n_params = sum(a.size for blk in blocks for layer in blk.values() for a in layer.values())
+        print(f"phase 10 data: {KNEE_SHAPE} float32 knee (RandomState(4)), full-width U-Net "
+              f"({n_params:,} parameters, RandomState(0)), batch {B}, in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+        cats = model.CATEGORIES
+
+        t0 = time.perf_counter()
+        reset_launches()
+        masks = model.generate_mask(host)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = expect_launches("segmentation")  # no hand kernel on this path
+        for c in cats:
+            v = masks[c]
+            check(isinstance(v.volume, np.ndarray) and v.volume.dtype == np.uint8
+                  and v.shape == KNEE_SHAPE and v.orientation == host.orientation,
+                  f"mask {c}: {type(v.volume)} {v.volume.dtype} {v.shape} {v.orientation}")
+
+        # The card's float32 probabilities of the batches that hold the check
+        # slices, computed as predict_mask_volume computes them.
+        net = model.seg_model.network(dev)
+        x = torch.from_numpy(arr).to(dev)
+        mean, std = x.mean(), x.std(correction=0)
+        slices = x.permute(2, 0, 1).contiguous()[:, None]
+
+        def batch_probs(network, b0, dtype=torch.float32):
+            with torch.inference_mode(), cudnn_exact():
+                xs = (slices[b0 : b0 + B].to(torch.float32) - mean) / std
+                return network(xs.to(dtype)).to(torch.float32)
+
+        starts = sorted({s - s % B for s in SEG_CHECK_SLICES})
+        probs = {b0: batch_probs(net, b0) for b0 in starts}
+        check(torch.backends.cudnn.allow_tf32 is True, "the forward left allow_tf32 changed")
+
+        # Check 1: full float32 against float64 on the CPU, same weights.
+        a64 = arr.astype(np.float64)
+        x64 = (a64[..., list(SEG_CHECK_SLICES)] - a64.mean()) / a64.std()
+        t0 = time.perf_counter()
+        net64 = UNet2D.from_params(params).double()
+        with torch.inference_mode():
+            p64 = net64(torch.from_numpy(np.ascontiguousarray(x64.transpose(2, 0, 1)))[:, None])
+        ref_s = time.perf_counter() - t0
+        p32 = torch.stack([probs[s - s % B][s % B] for s in SEG_CHECK_SLICES]).double().cpu()
+        f32_err = float((p32 - p64).abs().max())
+        flips = (p32 > 0.5) != (p64 > 0.5)
+        check(f32_err <= SEG_F32_TOL, f"float32 probabilities {f32_err:.3g} from float64 "
+              f"(tolerance {SEG_F32_TOL}): TF32 reached the convolutions?")
+        check(bool(((p64[flips] - 0.5).abs() <= SEG_F32_TOL).all()),
+              "a float32 mask differs from float64 away from p = 0.5")
+        print(f"phase 10 check 1: card float32 vs CPU float64 on slices {SEG_CHECK_SLICES}, "
+              f"allow_tf32 True: max|Δp| {f32_err:.3g} (tolerance {SEG_F32_TOL}), "
+              f"{int(flips.sum())} mask flips, all within it of 0.5; reference {ref_s:.2f} s")
+
+        # Check 2: the packed path is lossless, reformat back included.
+        for s in SEG_CHECK_SLICES:
+            want = (probs[s - s % B][s % B] > 0.5).to(torch.uint8).cpu().numpy()  # (C, H, W)
+            for ci, c in enumerate(cats):
+                check(np.array_equal(masks[c].volume[:, :, s], want[ci]),
+                      f"generate_mask {c} slice {s} differs from the card's probabilities")
+        share = {c: float(masks[c].volume.mean()) for c in cats}
+        print(f"phase 10 check 2: generate_mask equals the card's thresholded probabilities "
+              f"on slices {SEG_CHECK_SLICES} for {cats}; foreground shares {share}")
+
+        # Check 3: the same masks for a volume already on the card.
+        on_card = host.to(dev)
+        masks_card = model.generate_mask(on_card)
+        for c in cats:
+            n_diff = int((masks_card[c].volume != masks[c].volume).sum())
+            check(n_diff == 0, f"mask {c} of the card volume differs from the host volume's "
+                               f"on {n_diff} voxels")
+        print("phase 10 check 3: the card volume gives the host volume's masks")
+
+        # Check 4: one packed device-to-host copy a call.
+        packed = int(np.prod(KNEE_SHAPE)) * 4 // 8
+        moved, n_copies = d2h_bytes(lambda: model.generate_mask(host))
+        check(packed <= moved <= packed + 1024,
+              f"D2H {moved} bytes in one call, not the packed mask's {packed} + scalars")
+        moved_card, _ = d2h_bytes(lambda: model.generate_mask(on_card))
+        check(packed <= moved_card <= packed + 1024,
+              f"D2H {moved_card} bytes for the card volume, not {packed} + scalars")
+        print(f"phase 10 check 4: D2H {moved:,} bytes in {n_copies} copies a call, "
+              f"{moved_card:,} for the card volume (packed mask {packed:,}; float32 "
+              f"probabilities would be {4 * 4 * int(np.prod(KNEE_SHAPE)):,})")
+
+        # Times (float32).
+        wall_s, walls = median_wall(lambda: model.generate_mask(host))
+        wall_card_s, walls_card = median_wall(lambda: model.generate_mask(on_card))
+        _, busy_ms, idle = device_busy_share(lambda: model.generate_mask(host))
+        torch.cuda.reset_peak_memory_stats()
+        model.generate_mask(host)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+        def forward_ms(network, dtype):
+            per = []
+            for b0 in range(0, S, B):
+                ms, _ = time_ms(lambda: batch_probs(network, b0, dtype), reps=3)
+                per.append(ms)
+            return per
+
+        fwd = forward_ms(net, torch.float32)
+        # Levers the port does not take (PERF.md): the same float32 forward
+        # with activations and weights channels_last, and with cuDNN free to
+        # pick non-deterministic algorithms.
+        net_cl = UNet2D.from_params(params).to(dev).to(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            slices_cl = slices.contiguous(memory_format=torch.channels_last)
+        fwd_cl = []
+        for b0 in range(0, S, B):
+            def cl_batch(b0=b0):
+                with torch.inference_mode(), cudnn_exact():
+                    return net_cl((slices_cl[b0 : b0 + B] - mean) / std)
+            fwd_cl.append(time_ms(cl_batch, reps=3)[0])
+        prev_det = torch.backends.cudnn.deterministic
+        fwd_nondet = []
+        for b0 in range(0, S, B):
+            def nondet_batch(b0=b0):
+                with torch.inference_mode(), cudnn_exact():
+                    torch.backends.cudnn.deterministic = False
+                    return net((slices[b0 : b0 + B] - mean) / std)
+            fwd_nondet.append(time_ms(nondet_batch, reps=3)[0])
+        torch.backends.cudnn.deterministic = prev_det
+        del net_cl, slices_cl
+        # The host's share: unpacking the packed bytes of one call.
+        packed_host = np.random.RandomState(1).randint(
+            0, 256, (S, KNEE_SHAPE[0], KNEE_SHAPE[1] // 2), dtype=np.uint8)
+        t0 = time.perf_counter()
+        unpack(packed_host, KNEE_SHAPE[1], 4, 4)
+        unpack_s = time.perf_counter() - t0
+        flops = unet_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 4) * S
+        bound_f32 = flops / PEAK_F32_PER_S * 1e3
+        bound_bf16 = flops / PEAK_BF16_PER_S * 1e3
+
+        # Check 5: bfloat16.
+        dt.preferences.set("segmentation/precision", "bfloat16")
+        model16 = IWOAIOAIUnet2DNormalized((KNEE_SHAPE[0], KNEE_SHAPE[1], 1), None,
+                                           force_weights=True)
+        model16.seg_model.params = params
+        masks16 = model16.generate_mask(host)
+        net16 = model16.seg_model.network(dev)
+        bf16_err = max(float((batch_probs(net16, b0, torch.bfloat16) - probs[b0]).abs().max())
+                       for b0 in starts)
+        differ = sum(int((masks16[c].volume != masks[c].volume).sum()) for c in cats)
+        differ_share = differ / (4 * int(np.prod(KNEE_SHAPE)))
+        check(bf16_err <= SEG_BF16_MAX_ABS_ERR,
+              f"bfloat16 max|Δp| {bf16_err:.4g} > {SEG_BF16_MAX_ABS_ERR}")
+        check(differ_share <= SEG_BF16_MASK_SHARE,
+              f"bfloat16 masks differ on {differ_share:.4g} of voxels > {SEG_BF16_MASK_SHARE}")
+        wall16_s, walls16 = median_wall(lambda: model16.generate_mask(host))
+        fwd16 = forward_ms(net16, torch.bfloat16)
+        print(f"phase 10 check 5: bfloat16 vs float32: max|Δp| {bf16_err:.4g} on {len(starts)} "
+              f"batches (bound {SEG_BF16_MAX_ABS_ERR}), masks differ on {differ:,} voxels, "
+              f"{differ_share:.4g} of them (bound {SEG_BF16_MASK_SHARE})")
+
+        print(f"phase 10 on {card}, {S} slices of {KNEE_SHAPE[0]}x{KNEE_SHAPE[1]}, batch {B}:")
+        print(f"  generate_mask warm wall (median of 3): host volume {wall_s:.4f} s "
+              f"({S / wall_s:.1f} slices/s; {[round(w, 4) for w in walls]}), card volume "
+              f"{wall_card_s:.4f} s ({S / wall_card_s:.1f} slices/s; "
+              f"{[round(w, 4) for w in walls_card]}); first call {first_s:.3f} s")
+        print(f"  forward alone (CUDA events, median of 3 a batch): float32 {sum(fwd):.3f} ms "
+              f"({[round(t, 3) for t in fwd]}), {S / sum(fwd) * 1e3:.1f} slices/s; bfloat16 "
+              f"{sum(fwd16):.3f} ms ({[round(t, 3) for t in fwd16]})")
+        print(f"  bound: {flops / 1e12:.3f} TFLOP of convolutions ({flops / S / 1e9:.2f} GFLOP "
+              f"a slice) over the float32 rate 67 TFLOP/s = {bound_f32:.3f} ms (operations; "
+              f"float32 share {bound_f32 / sum(fwd):.3f}); over bfloat16's dense 989 TFLOP/s "
+              f"= {bound_bf16:.3f} ms (share {bound_bf16 / sum(fwd16):.3f})")
+        print(f"  levers not taken, float32 forward: channels_last {sum(fwd_cl):.3f} ms "
+              f"({[round(t, 3) for t in fwd_cl]}); non-deterministic cuDNN algorithms "
+              f"{sum(fwd_nondet):.3f} ms ({[round(t, 3) for t in fwd_nondet]}); the host's "
+              f"np.unpackbits of one call's packed mask {unpack_s * 1e3:.3f} ms")
+        print(f"  card busy in one call {busy_ms:.3f} ms, idle share {idle:.4f}; bfloat16 "
+              f"generate_mask {wall16_s:.4f} s ({[round(w, 4) for w in walls16]}); peak memory "
+              f"{peak / 2**30:.3f} GiB")
+        return {"shape": list(KNEE_SHAPE), "batch_size": B, "launches": launches,
+                "wall_s": wall_s, "wall_card_s": wall_card_s, "first_s": first_s,
+                "slices_per_s": S / wall_s, "slices_per_s_card": S / wall_card_s,
+                "forward_ms": sum(fwd), "forward_batch_ms": fwd,
+                "bound_ms": bound_f32, "bound_by": "operations", "tflop": flops / 1e12,
+                "busy_ms": busy_ms, "idle_share": idle, "d2h_bytes": moved,
+                "d2h_bytes_card": moved_card,
+                "f32_max_abs_err": f32_err, "bf16_max_abs_err": bf16_err,
+                "bf16_mask_differ_share": differ_share, "bf16_wall_s": wall16_s,
+                "bf16_forward_ms": sum(fwd16), "bf16_bound_ms": bound_bf16,
+                "peak_bytes": peak, "forward_channels_last_ms": sum(fwd_cl),
+                "forward_nondeterministic_ms": sum(fwd_nondet), "unpack_ms": unpack_s * 1e3}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+        dt.preferences.set("segmentation/precision", prev_precision)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
-                        help="stop after phase 3 (build and small cases); phases 4-9 (the "
-                             "full-width paths, phase 9 the DICOM series) do not run; prints "
+                        help="stop after phase 3 (build and small cases); phases 4-10 (the "
+                             "full-width paths, phase 9 the DICOM series, phase 10 "
+                             "segmentation) do not run; prints "
                              "no result")
     opts = parser.parse_args(argv)
 
@@ -1671,6 +1990,10 @@ def main(argv=None):
     t_start = time.perf_counter()
     phase_dicom(dt, dev, card)
     print(f"phase 9: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    seg = phase_segmentation(dt, dev, card)
+    print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).
@@ -1705,6 +2028,7 @@ def main(argv=None):
         entry.update({k: v for k, v in res.items() if k not in entry and k != "max_abs_err"})
         kernels.append(entry)
     print(card)
+    print(json.dumps({"segmentation": seg}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

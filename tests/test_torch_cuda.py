@@ -97,3 +97,58 @@ def test_card_volumes_fit_reduce_and_write(tmp_path, card):
     again = dt.DicomReader().load(str(tmp_path / "echo2"))[0]
     np.testing.assert_array_equal(again.A, pixels[..., 1])
     assert os.path.isdir(tmp_path / "echo2")
+
+
+def _unet_probs(net, x, device, dtype):
+    from dosma_tpu_torch.models.unet2d import cudnn_exact
+
+    net = net.to(device=device, dtype=dtype)
+    with torch.inference_mode(), cudnn_exact():
+        return net(x.to(device=device, dtype=dtype)).to(torch.float64).cpu()
+
+
+@pytest.mark.cuda
+def test_unet_float32_forward_is_cudnn_exact_with_tf32_allowed(card):
+    """With the process-wide cudnn.allow_tf32 True (PyTorch's default), the
+    card's float32 probabilities stay within 1e-4 of a float64 CPU forward:
+    the forward scopes TF32 off. A mask may differ only within 1e-4 of 0.5."""
+    from dosma_tpu_torch.models.unet2d import UNet2D, init_unet2d_params
+
+    params = init_unet2d_params(torch.Generator().manual_seed(0), num_classes=4)
+    x = torch.from_numpy(np.random.RandomState(1).rand(2, 1, 128, 128).astype(np.float32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = _unet_probs(UNet2D.from_params(params), x, card, torch.float32)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want = _unet_probs(UNet2D.from_params(params), x, "cpu", torch.float64)
+    assert float((got - want).abs().max()) <= 1e-4
+    flips = (got > 0.5) != (want > 0.5)
+    assert bool(((want[flips] - 0.5).abs() <= 1e-4).all())
+
+
+@pytest.mark.cuda
+def test_generate_mask_of_a_card_volume_equals_the_host_volume(card):
+    """A host volume (float32 or uint16) goes to the card once; the same
+    volume already on the card gives the same host uint8 masks."""
+    from dosma_tpu_torch.models import IWOAIOAIUnet2DNormalized, OAIUnet2D
+    from dosma_tpu_torch.models.unet2d import init_unet2d_params
+
+    rs = np.random.RandomState(2)
+    for cls, classes in ((IWOAIOAIUnet2DNormalized, 4), (OAIUnet2D, 1)):
+        model = cls((96, 96, 1), None, force_weights=True)
+        model.seg_model.params = init_unet2d_params(torch.Generator().manual_seed(3),
+                                                    num_classes=classes,
+                                                    features=[8, 16, 32, 64, 128, 256])
+        for arr in (rs.rand(96, 96, 7).astype(np.float32) * 1000,
+                    (rs.rand(96, 96, 7) * 4000).astype(np.uint16)):
+            host = dt.MedicalVolume(arr, dt.to_affine(dt.SAGITTAL)).reformat(dt.AXIAL)
+            want = model.generate_mask(host)
+            got = model.generate_mask(host.to(card))
+            pairs = [(want, got)] if classes == 1 else [(want[k], got[k]) for k in want]
+            for w, g in pairs:
+                assert isinstance(g.volume, np.ndarray) and g.volume.dtype == np.uint8
+                assert g.orientation == host.orientation
+                np.testing.assert_array_equal(g.volume, w.volume)

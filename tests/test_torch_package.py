@@ -48,7 +48,9 @@ def test_import_loads_no_jax_pandas_yaml():
         "dosma_tpu_torch.core.io.prefetch, dosma_tpu_torch.core.io._native, "
         "dosma_tpu_torch.core.numpy_routines, dosma_tpu_torch.ops.qmri, "
         "dosma_tpu_torch.ops.analytics, dosma_tpu_torch.utils.io_utils, "
-        "dosma_tpu_torch.utils.logger, dosma_tpu_torch.file_constants\n"
+        "dosma_tpu_torch.utils.logger, dosma_tpu_torch.file_constants, "
+        "dosma_tpu_torch.models, dosma_tpu_torch.models.unet2d, "
+        "dosma_tpu_torch.models.weights, dosma_tpu_torch.models.util\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu', 'PIL', 'h5py')))"
     )
