@@ -5,6 +5,7 @@ Usage, from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --quick    # phases 1-3 only: build, small cases
+    python3 chip_smoke.py --qdess-only  # phases 1 and 11 only
 
 Phases (any failure raises and exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -113,6 +114,27 @@ Phases (any failure raises and exits non-zero):
      convolutions' operations over 67 TFLOP/s) and the bfloat16 one, the
      idle share of one call, bfloat16's times and the peak memory, and a
      "segmentation" JSON line before the kernels line.
+ 11. the qDESS knee, from a DICOM series to per-region T2 rows: two uint16
+     echoes of 384x384x160 (echo 1 phase 10's recipe, RandomState(4) x
+     1000; echo 2 echo 1 x U(0.2, 0.6) from RandomState(5)) written by
+     DicomWriter as a sagittal series of 320 files with TR, TE, the flip
+     angle and GE's private spoiler tags (0019,10B6) / (0019,10B7);
+     QDess.from_dicom on the host and with to_device=True (equal pixels,
+     the tags read back); segment(phase 10's model, the four knee tissues,
+     use_rss=True): each tissue's mask is its channel of
+     model.generate_mask(scan.calc_rss()) (largest_cc for fc and pc); the
+     condyle arc of bench.py:544-553 (1.54M voxels) set on every tissue;
+     generate_t2_map(tissue=...) on the card echoes, bit-equal to
+     ops.qmri.qdess_t2_map with the header's parameters; each tissue's
+     quant_rows on the card map against the same on its host copy
+     (categories and counts equal, statistics and unrolled maps within
+     rtol 1e-9, equal NaN positions); each analytics call copies at most 8
+     bytes a masked voxel + 1 MB to the host (profiler memcpy events).
+     Prints the warm walls (median of 3) of the directory -> rows path with
+     the card's busy and idle share, from_dicom, segment, generate_t2_map,
+     largest_cc, each set_mask and each tissue's analytics, the D2H bytes,
+     the peak memory, and a "qdess_knee" JSON line before the kernels line.
+     No hand kernel runs on this path.
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -121,9 +143,10 @@ also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
-Each path (phases 4, 5, 6, 7, 9, 10) runs with every launch count set to 0
-just before it and read just after (phase 10's path launches none). The
-last three lines are the segmentation object, one JSON object with every
+Each path (phases 4, 5, 6, 7, 9, 10, 11) runs with every launch count set
+to 0 just before it and read just after (phases 10 and 11 launch none).
+`--qdess-only` runs phase 11 alone after phase 1. The last four lines are
+the segmentation object, the qDESS knee object, one JSON object with every
 kernel (its bound: the larger of the bytes it must move over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s) and the result object. It imports
 nothing of JAX.
@@ -1727,6 +1750,17 @@ def d2h_bytes(fn):
     return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
 
 
+def config4_model(params):
+    """bench.py's config4 model at full width with ``params`` set (float32
+    unless the precision preference says otherwise)."""
+    from dosma_tpu_torch.models import IWOAIOAIUnet2DNormalized
+
+    model = IWOAIOAIUnet2DNormalized((KNEE_SHAPE[0], KNEE_SHAPE[1], 1), None,
+                                     force_weights=True)
+    model.seg_model.params = params
+    return model
+
+
 def phase_segmentation(dt, dev, card):
     """Phase 10 (see the module docstring). TF32 stays allowed for the
     whole phase (PyTorch's default), so check 1 fails if it reaches the
@@ -1744,9 +1778,7 @@ def phase_segmentation(dt, dev, card):
         host = dt.MedicalVolume(arr, dt.to_affine(dt.SAGITTAL, SEG_SPACING))
         params = he_normal_unet_params(np.random.RandomState(0), 4, FEATURES)
         dt.preferences.set("segmentation/precision", "float32")
-        model = IWOAIOAIUnet2DNormalized((KNEE_SHAPE[0], KNEE_SHAPE[1], 1), None,
-                                         force_weights=True)
-        model.seg_model.params = params
+        model = config4_model(params)
         B, S = model.batch_size, KNEE_SHAPE[2]
         blocks = params["down"] + params["up"] + [{"final": params["final"]}]
         n_params = sum(a.size for blk in blocks for layer in blk.values() for a in layer.values())
@@ -1933,19 +1965,354 @@ def phase_segmentation(dt, dev, card):
                 "bf16_mask_differ_share": differ_share, "bf16_wall_s": wall16_s,
                 "bf16_forward_ms": sum(fwd16), "bf16_bound_ms": bound_bf16,
                 "peak_bytes": peak, "forward_channels_last_ms": sum(fwd_cl),
-                "forward_nondeterministic_ms": sum(fwd_nondet), "unpack_ms": unpack_s * 1e3}
+                "forward_nondeterministic_ms": sum(fwd_nondet), "unpack_ms": unpack_s * 1e3}, model
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
         dt.preferences.set("segmentation/precision", prev_precision)
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the qDESS knee, from a DICOM series to per-region T2 rows
+# ----------------------------------------------------------------------
+QDESS_ECHO_TIMES = (8.0, 42.0)  # tests/scan_sequences/mri/test_qdess.py's echoes
+QDESS_RATIO = (0.2, 0.6)  # echo 2 = echo 1 x a ratio drawn from RandomState(5)
+QDESS_RTOL = 1e-9  # rows and unrolled maps, card map against its host copy
+D2H_SLACK = 1 << 20  # bytes beyond 8 a masked voxel the compressed analytics may copy
+
+
+def qdess_headers(shape, physics):
+    """(1, 1, slices, 2) headers of a two-echo sagittal qDESS series: rows
+    along S-I, columns along A-P, slices along L-R; TR, TE, the flip angle
+    and GE's private spoiler tags (0019,10B6) / (0019,10B7) set."""
+    from dosma_tpu_torch.core.io.dicom import Dataset, Tag
+    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
+
+    rows, cols, nslices = shape
+    series = generate_uid()
+    headers = np.empty((1, 1, nslices, 2), dtype=object)
+    for e, te in enumerate(QDESS_ECHO_TIMES):
+        for s in range(nslices):
+            ds = Dataset()
+            ds.SOPInstanceUID = generate_uid()
+            ds.SeriesInstanceUID = series
+            ds.Modality = "MR"
+            ds.InstanceNumber = e * nslices + s + 1
+            ds.EchoNumbers = e + 1
+            ds.EchoTime = te
+            ds.RepetitionTime = physics["tr"]
+            ds.FlipAngle = physics["alpha"]
+            ds.Rows, ds.Columns = rows, cols
+            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
+            ds.PixelRepresentation = 0
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelSpacing = [SEG_SPACING[0], SEG_SPACING[1]]
+            ds.SliceThickness = SEG_SPACING[2]
+            ds.ImagePositionPatient = [SEG_SPACING[2] * s, 0.0, 0.0]
+            ds.ImageOrientationPatient = [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
+            ds[Tag(0x0019, 0x10B6)] = physics["gl_area"]
+            ds[Tag(0x0019, 0x10B7)] = physics["tg"]
+            headers[0, 0, s, e] = ds
+    return headers
+
+
+def condyle_arc(shape):
+    """bench.py:544-553: the inferior arc of a femoral condyle in each
+    sagittal slice, the geometry the femoral analytics expect."""
+    h, w, d = shape
+    yv, xv = np.mgrid[0:h, 0:w]
+    cy, cx, R = h * 0.45, w * 0.5, h * 0.3
+    rad = np.sqrt((yv - cy) ** 2 + (xv - cx) ** 2)
+    annulus = (rad > R * 0.8) & (rad < R * 1.05) & (yv > cy)
+    return np.repeat(annulus[..., None], d, axis=2).astype(np.uint8)
+
+
+def check_tissue_rows(name, card, host, rtol=QDESS_RTOL):
+    """``quant_rows`` of the card map against the host copy's: categories and
+    voxel counts exactly, statistics and unrolled maps within ``rtol`` with
+    equal NaN positions. Returns the largest relative difference."""
+    (header, rows, maps), (header_h, rows_h, maps_h) = card, host
+    check(header == header_h, f"{name}: header {header} vs {header_h}")
+    stats = {i for i, col in enumerate(header) if col in ("Mean", "Std", "Median")}
+    worst = 0.0
+    for r, w in zip(rows, rows_h, strict=True):
+        check([v for i, v in enumerate(r) if i not in stats]
+              == [v for i, v in enumerate(w) if i not in stats],
+              f"{name}: row {r} differs from the host map's {w} in its categories or counts")
+        for i in stats:
+            a, b = float(r[i]), float(w[i])
+            check(np.isnan(a) == np.isnan(b), f"{name}: {header[i]} {a} vs {b}")
+            if not np.isnan(b):
+                rel = abs(a - b) / max(abs(b), 1e-300)
+                check(rel <= rtol, f"{name}: {r[:4]} {header[i]} {a} vs {b} (rel {rel:.3g})")
+                worst = max(worst, rel)
+    for m, mh in zip(maps, maps_h, strict=True):
+        a, b = np.asarray(m["data"], np.float64), np.asarray(mh["data"], np.float64)
+        check(a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b)),
+              f"{name}: unrolled map {m['title']} shape or NaN positions differ")
+        fin = ~np.isnan(b)
+        if fin.any():
+            rel = float((np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1e-300)).max())
+            check(rel <= rtol, f"{name}: unrolled map {m['title']} rel {rel:.3g}")
+            worst = max(worst, rel)
+    return worst
+
+
+def asked_d2h_bytes(fn):
+    """Bytes of card tensors that ``fn`` asks to have on the host (``cpu``,
+    ``to`` the CPU, ``tolist``, ``item``), counted at those calls: a second
+    count beside the profiler's memcpy events, which a process that has run
+    many profiler sessions may miss (PERF.md §5)."""
+    counted = [0]
+    originals = {name: getattr(torch.Tensor, name) for name in ("cpu", "to", "tolist", "item")}
+
+    def counting(name):
+        original = originals[name]
+
+        def call(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            if self.is_cuda and (name in ("tolist", "item") or not out.is_cuda):
+                counted[0] += self.numel() * self.element_size()
+            return out
+        return call
+
+    for name in originals:
+        setattr(torch.Tensor, name, counting(name))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, original in originals.items():
+            setattr(torch.Tensor, name, original)
+    return counted[0]
+
+
+def phase_qdess_knee(dt, dev, card, model=None):
+    """Phase 11 (see the module docstring): a two-echo qDESS series of the
+    OAI DESS matrix from DICOM to every knee tissue's rows on the card."""
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+    from dosma_tpu_torch.core.orientation import SAGITTAL
+    from dosma_tpu_torch.ops.qmri import qdess_t2_map
+    from dosma_tpu_torch.tissues import largest_cc
+
+    if model is None:  # phase 11 alone: the same model as phase 10's
+        from dosma_tpu_torch.models.unet2d import FEATURES
+
+        model = config4_model(he_normal_unet_params(np.random.RandomState(0), 4, FEATURES))
+    physics = {k: QDESS_PHYSICS[k] for k in ("tr", "alpha", "gl_area", "tg")}
+    t0 = time.perf_counter()
+    e1 = (np.random.RandomState(4).rand(*KNEE_SHAPE) * 1000).astype(np.uint16)
+    ratio = np.random.RandomState(5).uniform(*QDESS_RATIO, KNEE_SHAPE)
+    e2 = (e1 * ratio).astype(np.uint16)
+    pixels = np.stack([e1, e2], axis=-1)
+    del ratio
+    headers = qdess_headers(KNEE_SHAPE, physics)
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    print(f"phase 11 data: two echoes of {KNEE_SHAPE} uint16 (RandomState(4) x 1000, echo 2 x "
+          f"U{QDESS_RATIO} from RandomState(5)), {pixels.nbytes / 1e6:.1f} MB of pixels, in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+
+    def tissues():
+        return [dt.FemoralCartilage(), dt.TibialCartilage(), dt.PatellarCartilage(),
+                dt.Meniscus()]
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_qdess_")
+    try:
+        series_dir = os.path.join(work, "series")
+        t0 = time.perf_counter()
+        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
+                                           series_dir)
+        write_s = time.perf_counter() - t0
+        n_files = len(os.listdir(series_dir))
+        check(n_files == 2 * KNEE_SHAPE[2], f"{n_files} files written, not {2 * KNEE_SHAPE[2]}")
+        print(f"phase 11 write: DicomWriter(num_workers=8) {n_files} files in {write_s:.3f} s")
+
+        # 1. from_dicom, host and card: the same pixels and header values.
+        host_scan = dt.QDess.from_dicom(series_dir, num_workers=8)
+        scan = dt.QDess.from_dicom(series_dir, to_device=True, num_workers=8)
+        for e, (h, c) in enumerate(zip(host_scan.volumes, scan.volumes, strict=True)):
+            check(h.A.dtype == np.uint16 and np.array_equal(h.A, pixels[..., e]),
+                  f"host read: echo {e + 1} pixels")
+            want = torch.from_numpy(pixels[..., e]).to(dev).to(torch.int32)
+            check(c.A.device == want.device and c.A.dtype == torch.int32
+                  and torch.equal(c.A, want), f"from_dicom(to_device=True): echo {e + 1} pixels")
+            check(np.array_equal(c.affine, affine), f"echo {e + 1} affine")
+        from dosma_tpu_torch.core.io.dicom import Tag
+        for s in (host_scan, scan):
+            check(float(s.get_metadata(Tag(0x0019, 0x10B6))) == physics["gl_area"]
+                  and float(s.get_metadata(Tag(0x0019, 0x10B7))) == physics["tg"],
+                  "the private spoiler tags did not survive DicomWriter -> reader")
+        orientation = scan.volumes[0].orientation
+        print(f"phase 11 read: 2 echoes of {KNEE_SHAPE}, orientation {orientation}, pixels equal "
+              f"(uint16 on the host, int32 on the card), (0019,10B6) / (0019,10B7) = "
+              f"{physics['gl_area']} / {physics['tg']} in both")
+
+        # 2. segment on the echoes' RSS into the four tissues.
+        reset_launches()
+        tis = tissues()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = scan.segment(model, tis, use_rss=True)
+        first_segment_s = time.perf_counter() - t0
+        ref = model.generate_mask(scan.calc_rss())
+        cc_rule = {"fc": True, "tc": False, "pc": True, "men": False}  # each set_mask's default
+        for t in tis:
+            m = ref[t.STR_ID]
+            check(np.array_equal(masks[t.STR_ID].A, m.A), f"segment's {t.STR_ID} mask differs "
+                  "from model.generate_mask(scan.calc_rss())")
+            want = largest_cc(m.A) if cc_rule[t.STR_ID] else m.A
+            got = t.get_mask()
+            check(got.orientation == SAGITTAL and np.array_equal(
+                got.A, dt.MedicalVolume(np.asarray(want, np.uint8), m.affine)
+                .reformat(SAGITTAL).A), f"{t.STR_ID}'s mask is not its channel of the model's")
+        share = {t.STR_ID: float(ref[t.STR_ID].A.mean()) for t in tis}
+        print(f"phase 11 segment: use_rss=True, each tissue's mask equals its channel of "
+              f"model.generate_mask(scan.calc_rss()) (largest_cc for fc and pc), in SAGITTAL; "
+              f"foreground shares {share}; first call {first_segment_s:.3f} s")
+
+        # 3. the condyle arc on every tissue; 4. the T2 map of each, on the card.
+        arc = dt.MedicalVolume(condyle_arc(KNEE_SHAPE), affine)
+        n_arc = int(arc.A.sum())
+        for t in tis:
+            if isinstance(t, (dt.FemoralCartilage, dt.PatellarCartilage)):
+                t.set_mask(arc, use_largest_cc=False)
+            else:
+                t.set_mask(arc)
+        e1_card, e2_card = (v.A for v in scan.volumes)
+        results = {}
+        for t in tis:
+            qv = scan.generate_t2_map(tissue=t)
+            vm = qv.volumetric_map
+            check(isinstance(vm.A, torch.Tensor) and vm.A.device == dev,
+                  f"{t.STR_ID}: the T2 map of card echoes is not on the card")
+            plain = qdess_t2_map(e1_card, e2_card, te=QDESS_ECHO_TIMES[0], t1=t.T1_EXPECTED,
+                                 **physics)
+            plain = dt.MedicalVolume(plain, affine).reformat(vm.orientation).A
+            check(torch.equal(vm.A, plain), f"{t.STR_ID}: generate_t2_map differs from "
+                  "qdess_t2_map of the same echoes with the header's parameters")
+            host_map = vm.cpu()
+            card_rows = t.quant_rows(vm, qv.qv_type)
+            host_rows = t.quant_rows(host_map, qv.qv_type)
+            results[t.STR_ID] = {"rel": check_tissue_rows(t.STR_ID, card_rows, host_rows),
+                                 "rows": len(card_rows[1])}
+        print(f"phase 11 T2 maps: bit-equal to ops.qmri.qdess_t2_map of the card echoes "
+              f"(TR {physics['tr']}, TE {QDESS_ECHO_TIMES[0]}, alpha {physics['alpha']}, "
+              f"gl_area {physics['gl_area']}, tg {physics['tg']}, each tissue's T1)")
+        print(f"phase 11 rows: the condyle arc ({n_arc:,} voxels) on every tissue; the card "
+              f"map's rows and unrolled maps against its host copy's: categories and counts "
+              f"equal, largest rel {max(r['rel'] for r in results.values()):.3g} (tolerance "
+              f"{QDESS_RTOL:g}); rows {{{', '.join(f'{k}: {v['rows']}' for k, v in results.items())}}}")
+        for t in tis:
+            header, rows, _ = t.quant_rows(t.quantitative_values[0].volumetric_map,
+                                           t.quantitative_values[0].qv_type)
+            print(f"  phase 11 {t.STR_ID} rows:", json.dumps(
+                [dict(zip(header, r)) for r in rows[:2]] + [dict(zip(header, rows[-1]))],
+                default=float))
+
+        # D2H of each tissue's analytics (the map is 4 bytes a voxel), by the
+        # profiler's memcpy events and by the copies the code asks for.
+        d2h, d2h_asked = {}, {}
+        for t in tis:
+            qv = t.quantitative_values[0]
+
+            def rows(t=t, qv=qv):
+                return t.quant_rows(qv.volumetric_map, qv.qv_type)
+
+            d2h[t.STR_ID] = d2h_bytes(rows)[0]
+            d2h_asked[t.STR_ID] = asked_d2h_bytes(rows)
+        limit = 8 * n_arc + D2H_SLACK
+        for k in d2h:
+            for source, nbytes in (("memcpy events", d2h[k]), ("asked", d2h_asked[k])):
+                check(nbytes <= limit, f"{k}: analytics copied {nbytes} bytes to the host "
+                      f"({source}), more than 8 a masked voxel + 1 MB ({limit})")
+        map_bytes = 4 * int(np.prod(KNEE_SHAPE))
+        print(f"phase 11 D2H of one analytics call: profiler memcpy events {d2h} bytes, copies "
+              f"asked for {d2h_asked} bytes; each within 8 x {n_arc:,} masked voxels + 1 MB = "
+              f"{limit:,}; the map is {map_bytes:,}")
+
+        # Warm walls, each the median of 3.
+        def dir_to_rows():
+            s = dt.QDess.from_dicom(series_dir, to_device=True, num_workers=8)
+            ts = tissues()
+            s.segment(model, ts, use_rss=True)
+            out = []
+            for t in ts:
+                t.set_mask(arc, **({"use_largest_cc": False}
+                                   if isinstance(t, (dt.FemoralCartilage, dt.PatellarCartilage))
+                                   else {}))
+                qv = s.generate_t2_map(tissue=t)
+                out.append(t.quant_rows(qv.volumetric_map, qv.qv_type))
+            return out
+
+        reset_launches()
+        wall_s, walls = median_wall(dir_to_rows)
+        launches = expect_launches("qDESS knee")  # no hand kernel on this path
+        prof_wall_s, busy_ms, idle = device_busy_share(dir_to_rows)
+        torch.cuda.reset_peak_memory_stats()
+        dir_to_rows()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        read_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, num_workers=8))
+        load_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, to_device=True,
+                                                            num_workers=8))
+
+        def segment_once():
+            scan.tissues = []
+            scan.segment(model, tissues(), use_rss=True)
+
+        segment_s, _ = median_wall(segment_once)
+        t2_s, _ = median_wall(lambda: scan.generate_t2_map(t1=1200.0))
+        fc_mask = ref["fc"].A
+        cc_s, _ = median_wall(lambda: largest_cc(fc_mask))
+        cc_arc_s, _ = median_wall(lambda: largest_cc(arc.A))
+        analytics = {}
+        for t in tis:
+            qv = t.quantitative_values[0]
+            analytics[t.STR_ID] = median_wall(
+                lambda t=t, qv=qv: t.quant_rows(qv.volumetric_map, qv.qv_type))[0]
+        set_mask_s = {}
+        for t in tissues():
+            kw = ({"use_largest_cc": False}
+                  if isinstance(t, (dt.FemoralCartilage, dt.PatellarCartilage)) else {})
+            set_mask_s[t.STR_ID] = median_wall(lambda t=t, kw=kw: t.set_mask(arc, **kw))[0]
+        ms = {k: round(v * 1e3, 3) for k, v in analytics.items()}
+        print(f"phase 11 on {card}, {KNEE_SHAPE} x 2 echoes, config4's model at full width:")
+        print(f"  DICOM directory -> every tissue's rows (from_dicom(to_device=True), segment, "
+              f"the arc masks, generate_t2_map and quant_rows for each tissue), warm, median "
+              f"of 3: {wall_s:.4f} s, runs {[round(w, 4) for w in walls]}; one more run under "
+              f"torch.profiler: wall {prof_wall_s:.4f} s, the card busy {busy_ms:.3f} ms, idle "
+              f"share {idle:.4f}; launches {launches}")
+        print(f"  from_dicom: host read {read_s:.4f} s, to_device=True {load_s:.4f} s")
+        print(f"  segment (RSS, generate_mask, set_mask of four tissues): {segment_s:.4f} s; "
+              f"largest_cc of the fc mask {cc_s * 1e3:.3f} ms, of the arc {cc_arc_s * 1e3:.3f} ms")
+        print(f"  generate_t2_map (card echoes): {t2_s * 1e3:.3f} ms")
+        print(f"  set_mask of the arc (region split, host): "
+              f"{ {k: round(v * 1e3, 3) for k, v in set_mask_s.items()} } ms")
+        print(f"  analytics (quant_rows on the card map): {ms} ms")
+        print(f"  peak memory allocated in one run {peak / 2**30:.3f} GiB")
+        return {"shape": list(KNEE_SHAPE), "masked_voxels": n_arc, "launches": launches,
+                "wall_s": wall_s, "busy_ms": busy_ms, "idle_share": idle,
+                "read_s": read_s, "from_dicom_to_device_s": load_s, "segment_s": segment_s,
+                "t2_map_ms": t2_s * 1e3, "largest_cc_fc_ms": cc_s * 1e3,
+                "largest_cc_arc_ms": cc_arc_s * 1e3,
+                "set_mask_ms": {k: v * 1e3 for k, v in set_mask_s.items()},
+                "analytics_ms": {k: v * 1e3 for k, v in analytics.items()},
+                "d2h_bytes": d2h, "d2h_bytes_asked": d2h_asked, "peak_bytes": peak,
+                "rows_max_rel": max(r["rel"] for r in results.values())}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
-                        help="stop after phase 3 (build and small cases); phases 4-10 (the "
+                        help="stop after phase 3 (build and small cases); phases 4-11 (the "
                              "full-width paths, phase 9 the DICOM series, phase 10 "
-                             "segmentation) do not run; prints "
+                             "segmentation, phase 11 the qDESS knee) do not run; prints "
                              "no result")
+    parser.add_argument("--qdess-only", action="store_true",
+                        help="run phase 11 alone after phase 1 (no kernel is built or "
+                             "checked); prints no result")
     opts = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1966,6 +2333,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     import dosma_tpu_torch as dt
+
+    if opts.qdess_only:
+        t_start = time.perf_counter()
+        print(json.dumps({"qdess_knee": phase_qdess_knee(dt, dev, card)}))
+        print(f"phase 11 alone: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     build_all()  # phase 2
     worst = small_cases(dev)  # phase 3
@@ -1992,8 +2365,13 @@ def main(argv=None):
     print(f"phase 9: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
-    seg = phase_segmentation(dt, dev, card)
+    seg, seg_model = phase_segmentation(dt, dev, card)
     print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    qdess_knee = phase_qdess_knee(dt, dev, card, model=seg_model)
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s")
+    del seg_model
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).
@@ -2029,6 +2407,7 @@ def main(argv=None):
         kernels.append(entry)
     print(card)
     print(json.dumps({"segmentation": seg}))
+    print(json.dumps({"qdess_knee": qdess_knee}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,13 @@ NIfTI I/O (``read``/``write``/``load``/``save``, the readers and writers,
 ``load_to_device``), voxelwise monoexponential relaxometry, the
 curve-fitting API (``CurveFitter``, ``PolyFitter``, ``curve_fit``,
 ``polyfit``), quantitative maps and their metrics (``quant_vals``), the
-numpy routines on volumes and matrix registration (``register``,
-``apply_warp`` and the ``ops.registration`` functions). Importing it loads
-torch and numpy only: no jax, pandas, yaml or matplotlib. Kernels and the
-host C++ libraries are compiled on first use.
+numpy routines on volumes, matrix registration (``register``,
+``apply_warp`` and the ``ops.registration`` functions), the segmentation
+models (``models``), the knee tissues and their regional analytics
+(``Tissue``, ``FemoralCartilage``, ``TibialCartilage``,
+``PatellarCartilage``, ``Meniscus``) and the qDESS scan (``QDess``).
+Importing it loads torch, numpy and scipy only: no jax, pandas, yaml or
+matplotlib. Kernels and the host C++ libraries are compiled on first use.
 
 Entry points compute host (numpy) data on the default device, the first
 CUDA card, unless the caller asks for another:
@@ -87,6 +90,14 @@ from dosma_tpu_torch.ops.registration import (  # noqa: F401
     warp_volume,
     warp_volume_batch,
     warp_volume_chain,
+)
+from dosma_tpu_torch.scan_sequences import QDess  # noqa: F401
+from dosma_tpu_torch.tissues import (  # noqa: F401
+    FemoralCartilage,
+    Meniscus,
+    PatellarCartilage,
+    TibialCartilage,
+    Tissue,
 )
 from dosma_tpu_torch.utils.env import debug  # noqa: F401
 from dosma_tpu_torch.utils.logger import setup_logger  # noqa: F401

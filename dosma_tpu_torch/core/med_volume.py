@@ -85,6 +85,10 @@ class MedicalVolume(NDArrayOperatorsMixin):
             against ``volume.shape``.
     """
 
+    # (card tensor, pinned host tensor, event) of the copy started by
+    # copy_to_host_async; valid while that tensor is still the volume.
+    _host_copy = None
+
     def __init__(self, volume, affine, headers=None):
         if _is_tensor(volume):
             volume = as_tensor(volume)
@@ -275,13 +279,51 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if device == self.device:
             return self
         if device == cpu_device:
-            volume = self._volume.cpu().numpy()
+            volume = self._host_array()
         else:
             volume = as_tensor(self._volume, device.ptdevice)
         return self._partial_clone(volume=volume)
 
     def cpu(self) -> "MedicalVolume":
         return self.to(cpu_device)
+
+    def copy_to_host_async(self) -> "MedicalVolume":
+        """Start copying a card volume's pixels to the host; returns ``self``.
+
+        The copy goes into a pinned host buffer with ``non_blocking=True`` on
+        the current stream, and an event is recorded after it, so host work
+        that follows overlaps the transfer. The next :meth:`cpu` (or
+        ``to("cpu")``) waits on the event and takes the buffer instead of
+        copying again. A no-op for a host volume, or when this volume's copy
+        is already under way. Replacing or writing the pixels afterwards
+        (``volume =``, ``astype``, an in-place reformat, ``mv[...] =``,
+        ``+=``) drops the copy.
+        """
+        vol = self._volume
+        if not _is_tensor(vol) or vol.device.type == "cpu":
+            return self
+        if self._host_copy is not None and self._host_copy[0] is vol:
+            return self
+        host = torch.empty(tuple(vol.shape), dtype=vol.dtype, pin_memory=True)
+        host.copy_(vol, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(vol.device))
+        self._host_copy = (vol, host, done)
+        return self
+
+    def _host_array(self) -> np.ndarray:
+        """The pixels as a new host array: the buffer of a copy started by
+        :meth:`copy_to_host_async` once its event has passed, else a copy."""
+        pending, self._host_copy = self._host_copy, None
+        if pending is not None and pending[0] is self._volume:
+            pending[2].synchronize()
+            return pending[1].numpy()
+        return self._volume.cpu().numpy()
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_host_copy", None)  # a CUDA event neither pickles nor copies
+        return state
 
     # ------------------------------------------------------------------
     # Headers
@@ -533,6 +575,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if _is_tensor(self._volume) and isinstance(value, np.ndarray):
             value = as_tensor(value, self._volume.device)
         self._volume[_slice] = value
+        self._host_copy = None
 
     def __repr__(self) -> str:
         nltb = "\n  "
@@ -555,6 +598,7 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if result is NotImplemented:
             raise TypeError(f"{opname} not supported for {type(other)}")
         self._volume = result
+        self._host_copy = None
         return self
 
     def __iadd__(self, other):

@@ -37,27 +37,6 @@ class QuantitativeValueType(Enum):
     T2_STAR = 3
 
 
-def _summary(values: torch.Tensor, fns) -> dict:
-    """Mean / population Std / Median / # Voxels of a 1-D tensor of valid
-    values, reduced in float64 on its device (the median is the mean of
-    the two middle values for an even count, as ``np.nanmedian``), and
-    each of ``fns`` on the values as a host array."""
-    n = values.numel()
-    row = {"Mean": np.nan, "Std": np.nan, "Median": np.nan}
-    if n:
-        v = values.to(torch.float64)
-        mean = v.mean()
-        std = torch.sqrt(((v - mean) ** 2).mean())
-        median = torch.sort(values).values[(n - 1) // 2: n // 2 + 1].to(torch.float64).mean()
-        row = dict(zip(row, torch.stack([mean, std, median]).tolist()))
-    row["# Voxels"] = n
-    if fns:
-        host = values.cpu().numpy()
-        for fname, fn in fns.items():
-            row[fname] = fn(host)
-    return row
-
-
 class QuantitativeValue:
     """A volumetric quantitative parameter map plus companion volumes.
 
@@ -142,10 +121,9 @@ class QuantitativeValue:
         reduction of ``fns``, which receives the region's values as a host
         array.
         """
-        from dosma_tpu_torch.ops.analytics import gather_voxels
+        from dosma_tpu_torch.ops.analytics import gather_voxels, summary, volume_tensor
 
-        vol = self.volumetric_map.volume
-        volume = as_tensor(vol, vol.device if isinstance(vol, torch.Tensor) else "cpu")
+        volume = volume_tensor(self.volumetric_map.volume)
         if mask is None:
             regions = [("total", volume[torch.isfinite(volume)
                                         & self._bounds_mask(volume, bounds, closed)])]
@@ -163,7 +141,7 @@ class QuantitativeValue:
             values, region_labels = values[valid], region_labels[valid]
             regions = [(name, values[region_labels == label]) for label, name in labels.items()]
             regions.append(("total", values))
-        return [{"Category": name, **_summary(values, fns)} for name, values in regions]
+        return [{"Category": name, **summary(values, fns)} for name, values in regions]
 
     def to_metrics(
         self,

@@ -152,3 +152,108 @@ def test_generate_mask_of_a_card_volume_equals_the_host_volume(card):
                 assert isinstance(g.volume, np.ndarray) and g.volume.dtype == np.uint8
                 assert g.orientation == host.orientation
                 np.testing.assert_array_equal(g.volume, w.volume)
+
+
+@pytest.mark.cuda
+def test_copy_to_host_async_of_a_card_volume(card):
+    """The copy goes to a pinned buffer; ``cpu()`` waits on its event and
+    hands the buffer over once; writing the pixels drops the copy."""
+    arr = np.random.RandomState(1).rand(32, 24, 8).astype(np.float32)
+    mv = dt.MedicalVolume(torch.from_numpy(arr).to(card), np.eye(4))
+    assert mv.copy_to_host_async() is mv
+    pending = mv._host_copy
+    assert pending[0] is mv.volume and pending[1].is_pinned()
+    assert mv.copy_to_host_async()._host_copy is pending  # already under way
+    host = mv.cpu()
+    assert isinstance(host.volume, np.ndarray) and mv._host_copy is None
+    np.testing.assert_array_equal(host.volume, arr)
+    assert host.volume.ctypes.data == pending[1].data_ptr()  # the buffer, not a new copy
+    mv.copy_to_host_async()
+    mv[0] = 5.0
+    assert mv._host_copy is None and float(mv.cpu().volume[0, 0, 0]) == 5.0
+    mv.copy_to_host_async()
+    mv += 1.0
+    assert mv._host_copy is None and float(mv.cpu().volume[0, 0, 0]) == 6.0
+    mv.copy_to_host_async()
+    flipped = mv.reformat(mv.orientation[::-1], inplace=True)
+    assert flipped._host_copy[0] is not flipped.volume  # stale: a fresh copy is made
+    np.testing.assert_array_equal(flipped.cpu().volume, flipped.volume.cpu().numpy())
+
+
+def _write_qdess_series(path, shape=(48, 40, 6)):
+    """A two-echo sagittal qDESS series (uint16) with TR, TE, the flip angle
+    and the private spoiler tags, written by the port's DicomWriter."""
+    from dosma_tpu_torch.core.io.dicom import Dataset, Tag
+    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+
+    rs = np.random.RandomState(2)
+    e1 = (rs.rand(*shape) * 900 + 100).astype(np.uint16)
+    pixels = np.stack([e1, (e1 * rs.uniform(0.2, 0.6, shape)).astype(np.uint16)], axis=-1)
+    headers = np.empty((1, 1, shape[2], 2), dtype=object)
+    series = generate_uid()
+    for e, te in enumerate((8.0, 42.0)):
+        for s in range(shape[2]):
+            ds = Dataset()
+            ds.SOPInstanceUID = generate_uid()
+            ds.SeriesInstanceUID = series
+            ds.Modality = "MR"
+            ds.InstanceNumber = e * shape[2] + s + 1
+            ds.EchoNumbers = e + 1
+            ds.EchoTime = te
+            ds.RepetitionTime = 25.0
+            ds.FlipAngle = 30.0
+            ds.Rows, ds.Columns = shape[0], shape[1]
+            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
+            ds.PixelRepresentation = 0
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelSpacing = [0.3, 0.3]
+            ds.SliceThickness = 0.7
+            ds.ImagePositionPatient = [0.7 * s, 0.0, 0.0]
+            ds.ImageOrientationPatient = [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
+            ds[Tag(0x0019, 0x10B6)] = 3132.0
+            ds[Tag(0x0019, 0x10B7)] = 1560.0
+            headers[0, 0, s, e] = ds
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    dt.DicomWriter().save(dt.MedicalVolume(pixels, affine, headers=headers), path)
+    return pixels, affine
+
+
+def _arc(shape):
+    h, w, d = shape
+    yv, xv = np.mgrid[0:h, 0:w]
+    rad = np.sqrt((yv - h * 0.45) ** 2 + (xv - w * 0.5) ** 2)
+    arc = (rad > h * 0.24) & (rad < h * 0.315) & (yv > h * 0.45)
+    return np.repeat(arc[..., None], d, axis=2).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_qdess_femoral_rows_on_the_card_equal_the_cpu(tmp_path, card):
+    """from_dicom(to_device=True) -> generate_t2_map -> femoral cartilage's
+    rows on the card, against the same on the CPU: categories and counts
+    exactly, statistics and unrolled maps within rtol 1e-9. The map stays
+    on the card."""
+    pixels, affine = _write_qdess_series(str(tmp_path / "series"))
+    arc = dt.MedicalVolume(_arc(pixels.shape[:3]), affine)
+
+    def rows(device):
+        with dt.default_device(device):
+            scan = dt.QDess.from_dicom(str(tmp_path / "series"), to_device=True)
+            fc = dt.FemoralCartilage()
+            fc.set_mask(arc, use_largest_cc=False)
+            qv = scan.generate_t2_map(tissue=fc)
+            assert qv.volumetric_map.volume.device.type == torch.device(device).type
+            return fc.quant_rows(qv.volumetric_map, qv.qv_type)
+
+    (header, got, maps), (_, want, maps_cpu) = rows(card), rows("cpu")
+    stats = [header.index(c) for c in ("Mean", "Std", "Median")]
+    assert len(got) == 18 and 0 < sum(r[-1] for r in got[12:]) <= int(arc.volume.sum())
+    for r, w in zip(got, want):
+        assert [v for i, v in enumerate(r) if i not in stats] == \
+            [v for i, v in enumerate(w) if i not in stats]
+        np.testing.assert_allclose([r[i] for i in stats], [w[i] for i in stats],
+                                   rtol=1e-9, atol=0, equal_nan=True)
+    for m, w in zip(maps, maps_cpu):
+        np.testing.assert_array_equal(np.isnan(m["data"]), np.isnan(w["data"]))
+        np.testing.assert_allclose(m["data"], w["data"], rtol=1e-9, atol=0, equal_nan=True)

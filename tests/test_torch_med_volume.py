@@ -166,6 +166,27 @@ def test_clone_astype_headers_and_device():
     assert mt.pixel_spacing == (1.0, 1.0, 1.0) and mt.scanner_origin == (0.0, 0.0, 0.0)
 
 
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_copy_to_host_async_is_a_no_op_on_the_host(as_tensor):
+    """A host volume (numpy or a CPU tensor) starts no copy: the call returns
+    the volume unchanged, as ``dosma_tpu``'s does for a host array, and
+    survives pickling and deep copies."""
+    import copy
+    import pickle
+
+    arr = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    mt = dosma_tpu_torch.MedicalVolume(torch.from_numpy(arr) if as_tensor else arr, np.eye(4))
+    vol = mt.volume
+    assert mt.copy_to_host_async() is mt
+    assert mt.volume is vol and mt._host_copy is None
+    assert mt.cpu() is mt
+    for other in (copy.deepcopy(mt), pickle.loads(pickle.dumps(mt))):
+        np.testing.assert_array_equal(np.asarray(other), arr)
+        assert other._host_copy is None
+    mj = dosma_tpu.MedicalVolume(arr, np.eye(4))
+    assert mj.copy_to_host_async() is mj
+
+
 def test_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

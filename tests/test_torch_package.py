@@ -127,8 +127,8 @@ def test_exports_the_io_and_map_names(name):
 
 
 def test_names_still_missing_against_the_jax_package():
-    """Only the scans, the tissues, get_array_module and collect_env_info
-    are left (ROADMAP queue 1, items 5-7)."""
+    """Only the registered scans, get_array_module and collect_env_info are
+    left (ROADMAP queue 1, item 7)."""
     import re
 
     import dosma_tpu_torch
@@ -139,6 +139,4 @@ def test_names_still_missing_against_the_jax_package():
              "MedicalVolume", "AXIAL", "CORONAL", "SAGITTAL", "to_affine", "numpy_routines",
              "preferences", "debug", "setup_logger", "quant_vals"}
     missing = {n for n in lazy | eager if not hasattr(dosma_tpu_torch, n)}
-    assert missing == {"QDess", "CubeQuant", "Mapss", "Cones", "Tissue", "FemoralCartilage",
-                       "TibialCartilage", "PatellarCartilage", "Meniscus", "get_array_module",
-                       "collect_env_info"}
+    assert missing == {"CubeQuant", "Mapss", "Cones", "get_array_module", "collect_env_info"}
