@@ -6,6 +6,7 @@ Usage, from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --quick    # phases 1-3 only: build, small cases
     python3 chip_smoke.py --qdess-only  # phases 1 and 11 only
+    python3 chip_smoke.py --scans-only  # phases 1, 2, 12 and 13 only
 
 Phases (any failure raises and exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -135,6 +136,39 @@ Phases (any failure raises and exits non-zero):
      largest_cc, each set_mask and each tissue's analytics, the D2H bytes,
      the peak memory, and a "qdess_knee" JSON line before the kernels line.
      No hand kernel runs on this path.
+ 12. the registered scans: CubeQuant at 384x384x160 from a DICOM series
+     to femoral cartilage's T1ρ rows: bench.py's config 3 recipe
+     (RandomState(3), spin locks 1/10/30/60 ms, T1ρ U(20, 100), a box of
+     1000 + 50 U(0, 1), spin lock i rolled by (i, -i, 0)) as 640 uint16
+     files; the target is spin lock 1 rolled by (3, -2, 1) and the condyle
+     arc rolled the same way its mask, both NIfTI.
+     CubeQuant.from_dicom(to_device=True) -> intraregister() ->
+     interregister(target, arc) -> generate_t1_rho_map(tissue=fc) ->
+     fc.quant_rows. Checks: one warp_grid launch in each registration and
+     one monoexp_lm launch in the fit; recovery of the known rolls < 0.5
+     voxel (largest corner displacement, from the transform files); the
+     fit's and both warps' kernel outputs against their plain versions on
+     the same inputs (recorded from the path's own calls); scipy parity of
+     the map on 2,000 voxels inside the box and the arc (< 5e-3); fc's rows
+     on the card map against its host copy (rtol 1e-9); the
+     interregistered transform files warp the intraregistered volumes onto
+     the result again. Prints the first call, the warm wall (median of 3)
+     with the card's busy share (nvidia-smi), peak memory and a breakdown
+     (read, each registration's ms an Adam iteration, the order-3
+     prefilters, the final warps' kernel against its bound, the fit, the
+     rows). Then MAPSS (7 echoes, echoes 1-6 rolled by (1, -1, 0):
+     intraregister, T1ρ and T2) and Cones (4 echoes: interregister to the
+     last echo rolled by (2, -1, 1), T2*) at 192x192x48 on the card, one
+     run each with the same launch, recovery and kernel checks;
+ 13. B-spline registration: register(..., "bspline") on bench.py's recipe
+     (_bench_bspline_registration: 192x192x48 at 0.5x0.6x2.0 mm, blobs and
+     a +-2-voxel sinusoidal field, RandomState(7)), held to its gates
+     (residual RMSE < 0.1x, mean displacement error against the exact
+     inverse < 0.3 voxel); warm wall (median of 3), ms an iteration, busy
+     share; no warp_grid launch (the mixed chain samples points). Then
+     apply_warp of 4 x 384x384x160 volumes under a rigid + B-spline
+     transform-file chain, timed with CUDA events, volume 0 against the
+     port's CPU run of the same chain (1e-4 * max(1, |v|)).
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -143,10 +177,12 @@ also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
-Each path (phases 4, 5, 6, 7, 9, 10, 11) runs with every launch count set
-to 0 just before it and read just after (phases 10 and 11 launch none).
-`--qdess-only` runs phase 11 alone after phase 1. The last four lines are
-the segmentation object, the qDESS knee object, one JSON object with every
+Each path (phases 4, 5, 6, 7, 9, 10, 11, 12, 13) runs with every launch
+count set to 0 just before it and read just after (phases 10, 11 and 13
+launch none). `--qdess-only` runs phase 11 alone after phase 1;
+`--scans-only` phases 12 and 13 after the build. The last six lines are
+the segmentation object, the qDESS knee object, the registered-scans and
+B-spline objects, one JSON object with every
 kernel (its bound: the larger of the bytes it must move over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s) and the result object. It imports
 nothing of JAX.
@@ -1098,15 +1134,15 @@ def registration_phantom():
     return fixed, moving
 
 
-def corner_error_vox(M_est):
+def corner_error_vox(M_est, affine=REG_AFFINE, shape=REG_SHAPE, shift=REG_SHIFT):
     """Largest displacement error over the volume corners, in voxels of the
     index grid: the estimated fixed → moving index map against the known
-    shift."""
-    A = REG_AFFINE
+    shift (moving index = fixed index + shift)."""
+    A = np.asarray(affine, np.float64)
     B_est = np.linalg.inv(A) @ np.asarray(M_est) @ A
-    corners = np.array([[i, j, k, 1.0] for i in (0, REG_SHAPE[0] - 1)
-                        for j in (0, REG_SHAPE[1] - 1) for k in (0, REG_SHAPE[2] - 1)]).T
-    want = corners[:3] + np.asarray(REG_SHIFT, np.float64)[:, None]
+    corners = np.array([[i, j, k, 1.0] for i in (0, shape[0] - 1)
+                        for j in (0, shape[1] - 1) for k in (0, shape[2] - 1)]).T
+    want = corners[:3] + np.asarray(shift, np.float64)[:, None]
     return float(np.linalg.norm((B_est @ corners)[:3] - want, axis=0).max())
 
 
@@ -1980,17 +2016,17 @@ QDESS_RTOL = 1e-9  # rows and unrolled maps, card map against its host copy
 D2H_SLACK = 1 << 20  # bytes beyond 8 a masked voxel the compressed analytics may copy
 
 
-def qdess_headers(shape, physics):
-    """(1, 1, slices, 2) headers of a two-echo sagittal qDESS series: rows
-    along S-I, columns along A-P, slices along L-R; TR, TE, the flip angle
-    and GE's private spoiler tags (0019,10B6) / (0019,10B7) set."""
-    from dosma_tpu_torch.core.io.dicom import Dataset, Tag
+def series_headers(shape, spacing, echo_times):
+    """(1, 1, slices, echoes) headers of a sagittal multi-echo series: rows
+    along S-I, columns along A-P, slices along L-R, EchoNumbers 1.. and
+    EchoTime per echo."""
+    from dosma_tpu_torch.core.io.dicom import Dataset
     from dosma_tpu_torch.core.io.dicom.writer import generate_uid
 
     rows, cols, nslices = shape
     series = generate_uid()
-    headers = np.empty((1, 1, nslices, 2), dtype=object)
-    for e, te in enumerate(QDESS_ECHO_TIMES):
+    headers = np.empty((1, 1, nslices, len(echo_times)), dtype=object)
+    for e, te in enumerate(echo_times):
         for s in range(nslices):
             ds = Dataset()
             ds.SOPInstanceUID = generate_uid()
@@ -1999,20 +2035,31 @@ def qdess_headers(shape, physics):
             ds.InstanceNumber = e * nslices + s + 1
             ds.EchoNumbers = e + 1
             ds.EchoTime = te
-            ds.RepetitionTime = physics["tr"]
-            ds.FlipAngle = physics["alpha"]
             ds.Rows, ds.Columns = rows, cols
             ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
             ds.PixelRepresentation = 0
             ds.SamplesPerPixel = 1
             ds.PhotometricInterpretation = "MONOCHROME2"
-            ds.PixelSpacing = [SEG_SPACING[0], SEG_SPACING[1]]
-            ds.SliceThickness = SEG_SPACING[2]
-            ds.ImagePositionPatient = [SEG_SPACING[2] * s, 0.0, 0.0]
+            ds.PixelSpacing = [spacing[0], spacing[1]]
+            ds.SliceThickness = spacing[2]
+            ds.ImagePositionPatient = [spacing[2] * s, 0.0, 0.0]
             ds.ImageOrientationPatient = [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
-            ds[Tag(0x0019, 0x10B6)] = physics["gl_area"]
-            ds[Tag(0x0019, 0x10B7)] = physics["tg"]
             headers[0, 0, s, e] = ds
+    return headers
+
+
+def qdess_headers(shape, physics):
+    """(1, 1, slices, 2) headers of a two-echo sagittal qDESS series
+    (:func:`series_headers`) with TR, the flip angle and GE's private
+    spoiler tags (0019,10B6) / (0019,10B7) set."""
+    from dosma_tpu_torch.core.io.dicom import Tag
+
+    headers = series_headers(shape, SEG_SPACING, QDESS_ECHO_TIMES)
+    for ds in headers.flat:
+        ds.RepetitionTime = physics["tr"]
+        ds.FlipAngle = physics["alpha"]
+        ds[Tag(0x0019, 0x10B6)] = physics["gl_area"]
+        ds[Tag(0x0019, 0x10B7)] = physics["tg"]
     return headers
 
 
@@ -2303,6 +2350,636 @@ def phase_qdess_knee(dt, dev, card, model=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the registered scans, from a DICOM series to T1ρ / T2 / T2* maps
+# ----------------------------------------------------------------------
+SCAN_SPACING = (0.5, 0.5, 1.0)  # bench.py:379 (config 3's voxels, sagittal)
+SPIN_LOCK_TIMES = (1.0, 10.0, 30.0, 60.0)  # bench.py:380
+CQ_TARGET_SHIFT = (3, -2, 1)  # the target: the first spin lock rolled by this
+SCAN_SMALL_SHAPE = (192, 192, 48)  # config 3's own size, for MAPSS and Cones
+MAPSS_TIMES = (1.0, 10.0, 40.0, 80.0, 10.0, 30.0, 50.0)
+MAPSS_SHIFT = (1, -1, 0)  # echoes 1-6 rolled by this
+CONES_TIMES = (0.5, 2.0, 5.0, 10.0)
+CONES_TARGET_SHIFT = (2, -1, 1)  # the target: the last echo rolled by this
+RECOVERY_GATE = 0.5  # voxel, largest corner displacement (phase 7's)
+
+
+def relaxometry_volumes(shape, times, seed=3):
+    """bench.py:379-391 (config 3): relaxation times U(20, 100) ms, a bright
+    box of 1000 plus 50 U(0, 1), signal t = box * exp(-t / T). Returns the
+    float32 volumes and the box's slices."""
+    rs = np.random.RandomState(seed)
+    relax = rs.rand(*shape).astype(np.float32) * 80 + 20
+    base = np.zeros(shape, np.float32)
+    box = (slice(shape[0] // 4, -(shape[0] // 4)), slice(shape[1] // 4, -(shape[1] // 4)),
+           slice(2, -2))
+    base[box] = 1000.0
+    base += 50.0 * rs.rand(*shape).astype(np.float32)
+    return [base * np.exp(-t / relax) for t in times], box
+
+
+class recorded_calls:
+    """Records each call of ``module.name`` (arguments and result) while
+    the block runs; the call itself goes through unchanged, so the launch
+    counts stay the path's own."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.original = getattr(self.module, self.name)
+
+        def record(*args, **kwargs):
+            out = self.original(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+        setattr(self.module, self.name, record)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def check_recorded_warp(name, call):
+    """A recorded ``warp_grid_batched`` call: its kernel output against the
+    plain version on the same sources and maps (phase 3's tolerance).
+    Returns (max |Δ|, bit-equal, the prepared sources, B, shape, order)."""
+    from dosma_tpu_torch.ops.warp import prepare_sources, warp_grid_reference
+
+    (vols, B, out_shape, order), _kw, out = call
+    srcs = prepare_sources(vols, order)
+    Bt = torch.as_tensor(B, dtype=torch.float32, device=vols.device)
+    ref = warp_grid_reference(srcs, Bt, tuple(out_shape), order)
+    torch.cuda.synchronize()
+    err, equal = compare_warp(name, out, ref)
+    del ref
+    return err, equal, srcs, Bt, tuple(out_shape), order
+
+
+def check_recorded_fit(name, call):
+    """A recorded ``monoexp_lm`` call: the kernel's output against the
+    plain version on the same inputs, every voxel (phase 4's tolerance)."""
+    from dosma_tpu_torch.ops.monoexp import monoexp_lm_reference
+
+    args, kwargs, out = call
+    ref = monoexp_lm_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    return compare(name, out, ref)
+
+
+def transform_matrix(directory):
+    """The composition of the transform files of ``directory``, and their paths."""
+    from dosma_tpu_torch.core.registration import _load_transform_file
+    from dosma_tpu_torch.ops.registration import compose_transforms
+
+    files = sorted(os.path.join(directory, f) for f in os.listdir(directory)
+                   if f.startswith("TransformParameters."))
+    return compose_transforms([np.asarray(_load_transform_file(f)["matrix"])
+                               for f in files]), files
+
+
+class utilization_sampler:
+    """The card's busy share over a block: nvidia-smi's utilization.gpu (the
+    share of each sample period in which a kernel ran), sampled every 200
+    ms by one nvidia-smi process, stopped when the block ends. A trace of
+    the Adam loops' millions of kernels would cost more than the run."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "200", "-i", "0"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = [float(v) for v in out.split() if re.fullmatch(r"\d+(\.\d+)?", v)]
+        self.samples = len(vals)
+        self.busy = float(np.mean(vals)) / 100.0 if vals else float("nan")
+
+
+def scipy_parity_monoexp(name, x, yT, tc_map, idx, bounds):
+    """Relative RMSE of the map's tc at voxels ``idx`` against per-voxel
+    scipy fits of a * exp(b x) to the same (registered) float32 echoes."""
+    import scipy.optimize as sop
+
+    idx_t = torch.from_numpy(idx).to(yT.device)
+    Y = yT[:, idx_t].T.cpu().numpy().astype(np.float64)
+    ours = tc_map.reshape(-1)[idx_t].cpu().numpy().astype(np.float64)
+    ref = np.empty(len(idx))
+    for j in range(len(idx)):
+        pb = sop.curve_fit(lambda t, a, b: a * np.exp(b * t), np.float64(x), Y[j],
+                           p0=(Y[j, 0], -1 / 50.0), maxfev=2000)[0]
+        ref[j] = -1.0 / pb[1]
+    use = (ours > 0) & (ref > bounds[0]) & (ref < bounds[1])
+    check(use.mean() > 0.95, f"{name} parity: only {use.mean():.4f} of sampled voxels kept")
+    rel = float(np.sqrt(np.mean(((ours[use] - ref[use]) / ref[use]) ** 2)))
+    print(f"scipy parity {name}: rel RMSE of tc {rel:.6g} over {int(use.sum())} voxels "
+          f"(gate {PARITY_GATE})")
+    check(rel < PARITY_GATE, f"{name} scipy parity rel RMSE {rel}")
+    return rel
+
+
+def phase_cubequant(dt, dev, card):
+    """Phase 12, CubeQuant: a 4-spin-lock series of the OAI DESS matrix from
+    DICOM to femoral cartilage's T1ρ rows on the card."""
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+    from dosma_tpu_torch.ops import interp
+    from dosma_tpu_torch.ops import monoexp_pipeline, registration
+    from dosma_tpu_torch.ops.warp import warp_grid
+
+    shape = KNEE_SHAPE
+    t0 = time.perf_counter()
+    sigs, box = relaxometry_volumes(shape, SPIN_LOCK_TIMES)
+    pixels = np.stack([np.rint(np.roll(v, (i, -i, 0), axis=(0, 1, 2)) if i else np.rint(v))
+                       .astype(np.uint16) for i, v in enumerate(sigs)], axis=-1)
+    del sigs
+    headers = series_headers(shape, SCAN_SPACING, SPIN_LOCK_TIMES)
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    print(f"phase 12 data: config 3's recipe (bench.py:379-391, RandomState(3)) at {shape}, "
+          f"spin locks {SPIN_LOCK_TIMES} ms, spin lock i rolled by (i, -i, 0), uint16, "
+          f"{pixels.nbytes / 1e6:.1f} MB of pixels, in {time.perf_counter() - t0:.2f} s (host)")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cq_")
+    try:
+        series_dir = os.path.join(work, "series")
+        t0 = time.perf_counter()
+        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
+                                           series_dir)
+        write_s = time.perf_counter() - t0
+        n_files = len(os.listdir(series_dir))
+        check(n_files == 4 * shape[2], f"{n_files} files written, not {4 * shape[2]}")
+        target_path = os.path.join(work, "target.nii.gz")
+        arc_path = os.path.join(work, "arc.nii.gz")
+        target = np.roll(pixels[..., 0].astype(np.float32), CQ_TARGET_SHIFT, axis=(0, 1, 2))
+        dt.MedicalVolume(target, affine).save_volume(target_path)
+        arc = np.roll(condyle_arc(shape), CQ_TARGET_SHIFT, axis=(0, 1, 2))
+        dt.MedicalVolume(arc, affine).save_volume(arc_path)
+        arc_mv = dt.NiftiReader().load(arc_path)
+        del pixels, target
+        print(f"phase 12 write: DicomWriter(num_workers=8) {n_files} files in {write_s:.3f} s; "
+              f"target (spin lock 1 rolled by {CQ_TARGET_SHIFT}) and the condyle arc rolled "
+              f"the same way ({int(arc.sum()):,} voxels) as NIfTI")
+
+        def femoral(mask):
+            fc = dt.FemoralCartilage()
+            fc.set_mask(mask, use_largest_cc=False)
+            return fc
+
+        # The checked run (a process's first): each step with its launches.
+        t_first = time.perf_counter()
+        t0 = time.perf_counter()
+        scan = dt.CubeQuant.from_dicom(series_dir, to_device=True, num_workers=8)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        check(scan.spin_lock_times == list(SPIN_LOCK_TIMES),
+              f"spin-lock times {scan.spin_lock_times} from the headers")
+        check(all(v.A.is_cuda and v.A.dtype == torch.int32 for v in scan.volumes),
+              "from_dicom(to_device=True): the spin locks are not int32 on the card")
+        scan.temp_path = os.path.join(work, "cq")
+        steps, launches = {}, {}
+        with recorded_calls(registration, "warp_grid_batched") as warps:
+            reset_launches()
+            t0 = time.perf_counter()
+            scan.intraregister()
+            torch.cuda.synchronize()
+            steps["intraregister_s"] = time.perf_counter() - t0
+            launches["intraregister"] = expect_launches("intraregister", warp_grid=1)
+            pre_inter = list(scan.volumes)
+            reset_launches()
+            t0 = time.perf_counter()
+            scan.interregister(target_path, arc_path)
+            torch.cuda.synchronize()
+            steps["interregister_s"] = time.perf_counter() - t0
+            launches["interregister"] = expect_launches("interregister", warp_grid=1)
+        fc = femoral(arc_mv)
+        with recorded_calls(monoexp_pipeline, "monoexp_lm") as fits:
+            reset_launches()
+            t0 = time.perf_counter()
+            qv = scan.generate_t1_rho_map(tissue=fc)
+            torch.cuda.synchronize()
+            steps["t1rho_fit_s"] = time.perf_counter() - t0
+            launches["fit"] = expect_launches("generate_t1_rho_map", monoexp_lm=1)
+        # The map in the fit's layout, and the parity voxels in it (the rows
+        # reformat the map in place to the mask's orientation): inside the
+        # box (3 voxels in from its edges, rolled onto the target grid) and
+        # the arc.
+        fit_map = qv.volumetric_map.A.clone()
+        inside = np.zeros(shape, np.uint8)
+        inside[tuple(slice(b.start + 3, b.stop - 3) for b in box)] = 1
+        inside = np.roll(inside, CQ_TARGET_SHIFT, axis=(0, 1, 2)) & arc
+        inside = dt.MedicalVolume(inside, affine).reformat_as(qv.volumetric_map).A
+        t0 = time.perf_counter()
+        rows = fc.quant_rows(qv.volumetric_map, qv.qv_type)
+        steps["rows_s"] = time.perf_counter() - t0
+        first_s = time.perf_counter() - t_first
+        vm = qv.volumetric_map
+        check(isinstance(vm.A, torch.Tensor) and vm.A.is_cuda and vm.shape == shape
+              and bool(torch.isfinite(vm.A).all()), "the T1ρ map is not a finite card volume")
+        check(fc.quantitative_values and fc.quantitative_values[-1] is qv,
+              "the T1ρ value was not added to the tissue")
+
+        # 2. recovery, from the transform files written.
+        intra_err = []
+        for k, t in enumerate(SPIN_LOCK_TIMES[1:]):
+            M, _ = transform_matrix(os.path.join(scan.temp_path, "intraregister", f"moving-{k}"))
+            intra_err.append(corner_error_vox(M, affine, shape, ((k + 1), -(k + 1), 0)))
+        M_inter, inter_files = transform_matrix(
+            os.path.join(scan.temp_path, "interregistered", "moving-0"))
+        inter_err = corner_error_vox(M_inter, affine, shape,
+                                     tuple(-s for s in CQ_TARGET_SHIFT))
+        print(f"phase 12 recovery (largest corner displacement against the known roll): "
+              f"intraregister {[round(e, 4) for e in intra_err]} voxel, interregister "
+              f"{inter_err:.4f} voxel (gate {RECOVERY_GATE})")
+        check(max(intra_err) < RECOVERY_GATE, f"intraregister recovery {intra_err}")
+        check(inter_err < RECOVERY_GATE, f"interregister recovery {inter_err}")
+
+        # 3. the fit's kernel; 4. both warps' kernel, against their plain versions.
+        check(len(fits) == 1 and len(warps) == 2, f"{len(fits)} fits, {len(warps)} warps")
+        fit_err, fit_err_r2, fit_agree = check_recorded_fit("monoexp_lm T1ρ", fits[0])
+        print(f"compare monoexp_lm T1ρ fit: kernel vs plain on every voxel ({shape}, 4 spin "
+              f"locks): max|Δ| a,b={fit_err:.3g} r2={fit_err_r2:.3g}, converged agree "
+              f"{fit_agree:.6f}")
+        warp_res = {}
+        for label, call in zip(("intraregister", "interregister"), warps):
+            err, equal, srcs, B, out_shape, order = check_recorded_warp(
+                f"warp_grid {label}", call)
+            nb = int(srcs.shape[0])
+            k_ms, k_all = time_ms(lambda: warp_grid(srcs, B, out_shape, order))
+            nbytes, flops = warp_work(tuple(srcs.shape), out_shape, nb, order)
+            b_ms, b_by = bound(nbytes, flops)
+            warp_res[label] = {"nb": nb, "order": order, "max_abs_err": err, "bit_equal": equal,
+                               "ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"compare warp_grid {label}: NB={nb} order {order} {tuple(srcs.shape[1:])} -> "
+                  f"{out_shape}, one map {'per volume' if B.ndim == 3 else 'for all'}: "
+                  f"max|Δ|={err:.3g} bit-equal={equal}; kernel {k_ms:.4f} ms runs "
+                  f"{[round(t, 4) for t in k_all]}, bound {b_ms:.4f} ms by {b_by}")
+            del srcs
+        del warps
+        torch.cuda.empty_cache()
+
+        # 5. scipy parity on 2,000 voxels inside the box and the arc.
+        args = fits[0][0]
+        x, yT = args[0], args[1]
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        idx = np.random.RandomState(2).choice(np.flatnonzero(inside.reshape(-1)), PARITY_N,
+                                              replace=False)
+        parity = scipy_parity_monoexp("T1ρ (phase 12)", x, yT, fit_map, idx, (0, 500))
+        del fits, args, yT, fit_map
+
+        # 6. fc's rows from the card map against its host copy.
+        host_rows = fc.quant_rows(vm.cpu(), qv.qv_type)
+        rows_rel = check_tissue_rows("fc T1ρ", rows, host_rows)
+        print(f"phase 12 rows: fc's T1ρ rows on the card map against its host copy: "
+              f"largest rel {rows_rel:.3g} (tolerance {QDESS_RTOL:g}); {len(rows[1])} rows")
+        header, body, _ = rows
+        print("  phase 12 fc rows:", json.dumps([dict(zip(header, r)) for r in body[:2]],
+                                                default=float))
+
+        # 7. the interregistered transform files warp the volumes again.
+        back = dt.apply_warp(pre_inter, transform=inter_files)
+        back_err = 0.0
+        for i, (b, v) in enumerate(zip(back, scan.volumes, strict=True)):
+            err, _eq = compare_warp(f"apply_warp of the interregister files, volume {i}",
+                                    b.A, v.A)
+            back_err = max(back_err, err)
+        print(f"phase 12 transform files: apply_warp of {len(inter_files)} files to the 4 "
+              f"intraregistered volumes gives the interregistered ones, max|Δ| {back_err:.3g}")
+        del back, pre_inter, scan, qv, vm
+        torch.cuda.empty_cache()
+
+        # Warm walls of the whole path, its busy share and peak memory.
+        def dir_to_rows():
+            s = dt.CubeQuant.from_dicom(series_dir, to_device=True, num_workers=8)
+            s.temp_path = os.path.join(work, "cq-warm")
+            s.intraregister()
+            s.interregister(target_path, arc_path)
+            f = femoral(arc_mv)
+            q = s.generate_t1_rho_map(tissue=f)
+            return f.quant_rows(q.volumetric_map, q.qv_type)
+
+        # One warm run (a median of 3 would add ~90 s to the script; the
+        # first call above is the second sample).
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with utilization_sampler() as util:
+            wall_s, walls = median_wall(dir_to_rows, reps=1)
+        peak = torch.cuda.max_memory_allocated()
+        path_launches = expect_launches("CubeQuant", warp_grid=2, monoexp_lm=1)
+        host_read_s, _ = median_wall(lambda: dt.CubeQuant.from_dicom(series_dir, num_workers=8))
+        dev_read_s, _ = median_wall(lambda: dt.CubeQuant.from_dicom(series_dir, to_device=True,
+                                                                    num_workers=8))
+        vol = torch.rand(shape, device=dev)
+        pre_ms, _ = time_ms(lambda: interp.cubic_coeffs(vol))
+        del vol
+        intra_iters = 3 * 3 * 250  # 3 moving spin locks x 3 levels x 250 (affine preset)
+        inter_iters = 2 * 3 * 250  # rigid + affine interregister presets
+        inter_prefilters = 2 * 3  # order-3 metric sampling: one prefilter a level
+        intra_ms_it = (steps["intraregister_s"] * 1e3 - warp_res["intraregister"]["ms"]) / intra_iters
+        inter_ms_it = (steps["interregister_s"] * 1e3 - warp_res["interregister"]["ms"]
+                       - inter_prefilters * pre_ms) / inter_iters
+        print(f"phase 12 on {card}, CubeQuant at {shape} x 4 spin locks:")
+        print(f"  DICOM directory -> fc's T1ρ rows (from_dicom(to_device=True), intraregister, "
+              f"interregister(target, arc), generate_t1_rho_map(tissue=fc), quant_rows): first "
+              f"call {first_s:.4f} s; warm, one run: {wall_s:.4f} s; the card busy "
+              f"{util.busy:.4f} of it (idle {1 - util.busy:.4f}; nvidia-smi utilization.gpu, "
+              f"{util.samples} samples of 200 ms); peak memory allocated {peak / 2**30:.3f} "
+              f"GiB; launches in the warm run {path_launches}")
+        print(f"  breakdown of the first call: from_dicom(to_device=True) {read_s:.4f} s "
+              f"(warm: host read {host_read_s:.4f} s, to_device {dev_read_s:.4f} s); "
+              f"intraregister {steps['intraregister_s']:.4f} s ({intra_iters} Adam iterations, "
+              f"{intra_ms_it:.4f} ms each; final warp kernel "
+              f"{warp_res['intraregister']['ms']:.4f} ms); interregister "
+              f"{steps['interregister_s']:.4f} s ({inter_iters} iterations, {inter_ms_it:.4f} "
+              f"ms each; {inter_prefilters} order-3 prefilters of {pre_ms:.4f} ms = "
+              f"{inter_prefilters * pre_ms / 1e3 / steps['interregister_s']:.4f} of it; final "
+              f"warp kernel {warp_res['interregister']['ms']:.4f} ms); T1ρ fit "
+              f"{steps['t1rho_fit_s'] * 1e3:.3f} ms; fc's rows {steps['rows_s'] * 1e3:.3f} ms")
+        return {"shape": list(shape), "launches": {k: v for k, v in launches.items()},
+                "first_s": first_s, "wall_s": wall_s, "busy_share": util.busy,
+                "idle_share": 1 - util.busy, "peak_bytes": peak,
+                "read_first_s": read_s, "host_read_s": host_read_s, "to_device_s": dev_read_s,
+                **steps, "intraregister_ms_per_iteration": intra_ms_it,
+                "interregister_ms_per_iteration": inter_ms_it, "prefilter_ms": pre_ms,
+                "recovery_intra_vox": intra_err, "recovery_inter_vox": inter_err,
+                "fit_max_abs_err": max(fit_err, fit_err_r2), "warps": warp_res,
+                "scipy_parity": parity, "rows_max_rel": rows_rel, "apply_warp_max_abs": back_err}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_mapss_cones(dt, dev, card):
+    """Phase 12, MAPSS and Cones at config 3's own size: volumes on the
+    card, one run each, launch counts and recovery."""
+    from dosma_tpu_torch.ops import monoexp_pipeline, registration
+
+    shape = SCAN_SMALL_SHAPE
+    affine = dt.to_affine(dt.SAGITTAL, SCAN_SPACING)
+    out = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_scans_")
+    try:
+        # MAPSS: 7 echoes, echoes 1-6 rolled; intraregister, T1ρ and T2.
+        sigs, _box = relaxometry_volumes(shape, MAPSS_TIMES)
+        vols = [dt.MedicalVolume(torch.from_numpy(np.roll(v, MAPSS_SHIFT, axis=(0, 1, 2))
+                                                  if i else v).to(dev), affine)
+                for i, v in enumerate(sigs)]
+        scan = dt.Mapss(vols, echo_times=list(MAPSS_TIMES))
+        scan.temp_path = os.path.join(work, "mapss")
+        check(scan.__validate_scan__(), "Mapss: 7 echoes expected")
+        walls, launches = {}, {}
+        with recorded_calls(registration, "warp_grid_batched") as warps:
+            reset_launches()
+            t0 = time.perf_counter()
+            scan.intraregister()
+            torch.cuda.synchronize()
+            walls["intraregister_s"] = time.perf_counter() - t0
+            launches["intraregister"] = expect_launches("Mapss.intraregister", warp_grid=1)
+        err_w, _eq, *_ = check_recorded_warp("warp_grid Mapss intraregister", warps[0])
+        del warps
+        errs = [corner_error_vox(transform_matrix(os.path.join(
+            scan.temp_path, "intraregistered", f"moving-{k}"))[0], affine, shape, MAPSS_SHIFT)
+            for k in range(6)]
+        check(max(errs) < RECOVERY_GATE, f"Mapss intraregister recovery {errs}")
+        with recorded_calls(monoexp_pipeline, "monoexp_lm") as fits:
+            for name, gen in (("t1rho", scan.generate_t1_rho_map), ("t2", scan.generate_t2_map)):
+                reset_launches()
+                t0 = time.perf_counter()
+                qv = gen()
+                torch.cuda.synchronize()
+                walls[f"{name}_fit_s"] = time.perf_counter() - t0
+                launches[name] = expect_launches(f"Mapss {name}", monoexp_lm=1)
+                check(qv.volumetric_map.A.is_cuda and bool(torch.isfinite(qv.volumetric_map.A)
+                                                           .all()), f"Mapss {name} map")
+        fit_err = max(max(check_recorded_fit(f"monoexp_lm Mapss {i}", c)[:2])
+                      for i, c in enumerate(fits))
+        del fits
+        print(f"phase 12 MAPSS on {card}, {shape} x 7 echoes on the card: intraregister "
+              f"{walls['intraregister_s']:.4f} s (launches {launches['intraregister']}, "
+              f"recovery {[round(e, 4) for e in errs]} voxel, warp kernel vs plain max|Δ| "
+              f"{err_w:.3g}); T1ρ fit {walls['t1rho_fit_s'] * 1e3:.3f} ms, T2 fit "
+              f"{walls['t2_fit_s'] * 1e3:.3f} ms (one monoexp_lm launch each, kernel vs "
+              f"plain max|Δ| {fit_err:.3g})")
+        out["mapss"] = {"shape": list(shape), "launches": launches, **walls,
+                        "recovery_vox": errs, "max_abs_err": max(err_w, fit_err)}
+        del scan, vols, sigs
+
+        # Cones: 4 echoes; interregister to the last echo rolled, unmasked.
+        sigs, _box = relaxometry_volumes(shape, CONES_TIMES)
+        target_path = os.path.join(work, "cones_target.nii.gz")
+        dt.MedicalVolume(np.roll(sigs[-1], CONES_TARGET_SHIFT, axis=(0, 1, 2)),
+                         affine).save_volume(target_path)
+        vols = [dt.MedicalVolume(torch.from_numpy(v).to(dev), affine) for v in sigs]
+        scan = dt.Cones(vols, echo_times=list(CONES_TIMES))
+        scan.temp_path = os.path.join(work, "cones")
+        walls, launches = {}, {}
+        with recorded_calls(registration, "warp_grid_batched") as warps:
+            reset_launches()
+            t0 = time.perf_counter()
+            scan.interregister(target_path)
+            torch.cuda.synchronize()
+            walls["interregister_s"] = time.perf_counter() - t0
+            launches["interregister"] = expect_launches("Cones.interregister", warp_grid=1)
+        err_w, _eq, *_ = check_recorded_warp("warp_grid Cones interregister", warps[0])
+        del warps
+        err = corner_error_vox(transform_matrix(os.path.join(
+            scan.temp_path, "interregistered", "moving-0"))[0], affine, shape,
+            tuple(-s for s in CONES_TARGET_SHIFT))
+        check(err < RECOVERY_GATE, f"Cones interregister recovery {err}")
+        with recorded_calls(monoexp_pipeline, "monoexp_lm") as fits:
+            reset_launches()
+            t0 = time.perf_counter()
+            qv = scan.generate_t2_star_map()
+            torch.cuda.synchronize()
+            walls["t2star_fit_s"] = time.perf_counter() - t0
+            launches["t2star"] = expect_launches("Cones T2*", monoexp_lm=1)
+        check(qv.volumetric_map.A.is_cuda and bool(torch.isfinite(qv.volumetric_map.A).all()),
+              "Cones T2* map")
+        fit_err = max(check_recorded_fit("monoexp_lm Cones", fits[0])[:2])
+        del fits
+        print(f"phase 12 Cones on {card}, {shape} x 4 echoes on the card: interregister "
+              f"{walls['interregister_s']:.4f} s (launches {launches['interregister']}, "
+              f"recovery {err:.4f} voxel, warp kernel vs plain max|Δ| {err_w:.3g}); T2* fit "
+              f"{walls['t2star_fit_s'] * 1e3:.3f} ms (kernel vs plain max|Δ| {fit_err:.3g})")
+        out["cones"] = {"shape": list(shape), "launches": launches, **walls,
+                        "recovery_vox": err, "max_abs_err": max(err_w, fit_err)}
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_registered_scans(dt, dev, card):
+    """Phase 12: CubeQuant at the knee's size, then MAPSS and Cones."""
+    out = {"cubequant": phase_cubequant(dt, dev, card)}
+    torch.cuda.empty_cache()
+    out.update(phase_mapss_cones(dt, dev, card))
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 13: B-spline registration
+# ----------------------------------------------------------------------
+BSPLINE_AFFINE = np.diag([0.5, 0.6, 2.0, 1.0])  # bench.py:769
+
+
+def bspline_pair(shape=REG_SHAPE):
+    """bench.py:743-766: smooth blobs (a sigma-6 Gaussian of U(0, 1) from
+    RandomState(7), scaled to 0..1000) and their warp by a +-2-voxel
+    sinusoidal field; returns (fixed, moving, the field's function)."""
+    from scipy import ndimage
+
+    rs = np.random.RandomState(7)
+    fixed = ndimage.gaussian_filter(rs.rand(*shape).astype(np.float32), 6.0)
+    fixed = (fixed - fixed.min()) / (fixed.max() - fixed.min()) * 1000.0
+    i, j, k = np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape], indexing="ij")
+
+    def field(y0, y1, y2):
+        d0 = 2.0 * np.sin(2 * np.pi * y1 / shape[1]) * np.cos(2 * np.pi * y2 / (2 * shape[2]))
+        d1 = -2.0 * np.cos(2 * np.pi * y0 / shape[0]) * np.sin(2 * np.pi * y2 / (2 * shape[2]))
+        return d0, d1
+
+    d0, d1 = field(i, j, k)
+    moving = ndimage.map_coordinates(fixed, [i + d0, j + d1, k], order=1,
+                                     mode="constant").astype(np.float32)
+    return fixed, moving, field
+
+
+def phase_bspline(dt, dev, card):
+    """Phase 13: register(..., "bspline") on bench.py's recipe, held to its
+    gates; apply_warp of a rigid + B-spline chain at a knee's size."""
+    from dosma_tpu_torch.core.registration import _load_stage_params, _save_transform_file
+    from dosma_tpu_torch.ops.bspline import bspline_displacement, make_control_grid
+    from dosma_tpu_torch.ops.registration import _gauss_smooth3
+
+    shape = REG_SHAPE
+    fixed, moving, field = bspline_pair(shape)
+    A = BSPLINE_AFFINE
+    fv, mv = dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A)
+    cfg = _load_stage_params("bspline")
+    work = tempfile.mkdtemp(prefix="chip_smoke_bspline_")
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dt.register(fv, mv, "bspline", output_path=work, return_volumes=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = expect_launches("register(bspline)")  # the point samplers: no warp_grid
+        warped = out["volumes"][0].A
+        check(isinstance(warped, np.ndarray) and warped.shape == shape
+              and np.isfinite(warped).all(), "register(bspline): warped volume")
+        c = tuple(slice(s // 8, -(s // 8)) for s in shape)
+        res_before = float(np.sqrt(np.mean((moving[c] - fixed[c]) ** 2)))
+        res_after = float(np.sqrt(np.mean((warped[c] - fixed[c]) ** 2)))
+        # The displacement against the exact inverse of the known warp
+        # (fixed-point solve of y + d(y) = x) on bench.py's interior grid.
+        s0, s1, s2 = shape
+        ii, jj, kk = np.mgrid[s0 // 8: 7 * s0 // 8: 6, s1 // 8: 7 * s1 // 8: 6,
+                              s2 // 8: 7 * s2 // 8: 3].astype(np.float32)
+        pts = np.stack([ii.ravel(), jj.ravel(), kk.ravel()])
+        y = pts.copy()
+        for _ in range(50):
+            d0, d1 = field(y[0], y[1], y[2])
+            y = pts - np.stack([d0, d1, np.zeros_like(d0)])
+        u_true = y - pts
+        tdata = json.load(open(out["outputs"][0].transform[0]))
+        disp_mm = bspline_displacement(
+            torch.tensor(tdata["ctrl"], dtype=torch.float32, device=dev),
+            torch.from_numpy(pts).to(dev),
+            torch.tensor(tdata["spacing_vox"], dtype=torch.float32, device=dev)).cpu().numpy()
+        err_vox = np.linalg.norm(np.linalg.inv(A)[:3, :3] @ disp_mm - u_true, axis=0)
+        mean_err, p95_err = float(err_vox.mean()), float(np.percentile(err_vox, 95))
+        print(f"phase 13: register(bspline) on bench.py's recipe ({shape}, {A[0, 0]}x{A[1, 1]}"
+              f"x{A[2, 2]} mm, RandomState(7)): residual RMSE {res_before:.4f} -> "
+              f"{res_after:.4f} ({res_after / res_before:.4f} of it; gate 0.1); displacement "
+              f"error against the exact inverse: mean {mean_err:.4f}, p95 {p95_err:.4f} voxel "
+              f"(gate: mean 0.3); warp_grid launches {launches['warp_grid']} (the mixed "
+              f"chain samples points, as in dosma_tpu)")
+        check(res_after < 0.1 * res_before, f"bspline residual {res_after} vs {res_before}")
+        check(mean_err < 0.3, f"bspline displacement error {mean_err} voxel")
+
+        def timed():
+            dt.register(fv, mv, "bspline", output_path=work, save_volumes=False)
+
+        with utilization_sampler() as util:
+            wall_s, walls = median_wall(timed)
+        iters = sum(cfg.level_budget(cfg.resolutions)[0])
+        print(f"phase 13 on {card}: register(bspline) first call {first_s:.4f} s; warm "
+              f"(save_volumes=False), median of 3: {wall_s:.4f} s, runs "
+              f"{[round(w, 4) for w in walls]}; {iters} Adam iterations, "
+              f"{wall_s * 1e3 / iters:.4f} ms each; the card busy {util.busy:.4f} (idle "
+              f"{1 - util.busy:.4f}; nvidia-smi, {util.samples} samples)")
+        result = {"shape": list(shape), "first_s": first_s, "wall_s": wall_s, "walls": walls,
+                  "ms_per_iteration": wall_s * 1e3 / iters, "idle_share": 1 - util.busy,
+                  "residual_before": res_before, "residual_after": res_after,
+                  "mean_disp_err_vox": mean_err, "p95_disp_err_vox": p95_err,
+                  "warp_grid_launches": launches["warp_grid"]}
+
+        # A rigid + B-spline transform-file chain on four knee volumes.
+        kshape, kA = KNEE_SHAPE, WARP_AFFINE
+        cw = (kA @ np.r_[(np.asarray(kshape) - 1) / 2.0, 1.0])[:3]
+        a = np.deg2rad(3.0)
+        R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+        M = np.eye(4)
+        M[:3, :3] = R
+        M[:3, 3] = cw - R @ cw + np.array([1.0, -1.0, 0.5])
+        grid_shape, spacing = make_control_grid(kshape, kA, 32.0)
+        ctrl = np.random.RandomState(8).uniform(-2.0, 2.0, (3, *grid_shape)).astype(np.float32)
+        knee_mv = dt.MedicalVolume(np.zeros(kshape, np.float32), kA)
+        files = [os.path.join(work, "knee", f"TransformParameters.{i}.json") for i in (0, 1)]
+        _save_transform_file(files[0], ("matrix", M), _load_stage_params("rigid"), knee_mv,
+                             knee_mv)
+        _save_transform_file(files[1], ("bspline", ctrl, spacing), cfg, knee_mv, knee_mv)
+        # Smooth volumes, as images are: bench.py's blob recipe (a sigma-6
+        # Gaussian of U(0, 1), scaled to 0..1000) made on the card. On white
+        # noise x 1000, float32 coordinates that differ by ~1e-5 voxel
+        # between the card's and the CPU's products move a sample by up to
+        # 0.06 (3,766 voxels beyond the tolerance in this script's first run).
+        gen = torch.Generator(device=dev).manual_seed(3)
+        vols = []
+        for _ in range(KNEE_VOLUMES):
+            v = _gauss_smooth3(torch.rand(kshape, generator=gen, device=dev), 6.0, 18)
+            vols.append(dt.MedicalVolume((v - v.min()) / (v.max() - v.min()) * 1000.0, kA))
+            del v
+        reset_launches()
+        dt.apply_warp(vols, transform=files)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        warped4 = dt.apply_warp(vols, transform=files)
+        end.record()
+        end.synchronize()
+        apply_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        knee_launches = expect_launches("apply_warp(rigid + bspline)")
+        check(len(warped4) == KNEE_VOLUMES and all(w.A.is_cuda and w.shape == kshape
+                                                   for w in warped4), "apply_warp knee volumes")
+        t0 = time.perf_counter()
+        with dt.default_device("cpu"):
+            host = dt.apply_warp(vols[0].cpu(), transform=files)
+        cpu_s = time.perf_counter() - t0
+        got = warped4[0].A
+        want = torch.as_tensor(host.A).to(dev)
+        diff = (got - want).abs()
+        outside = int((diff > 1e-4 * torch.clamp(want.abs(), min=1.0)).sum())
+        knee_err = float(diff.max())
+        print(f"phase 13 knee: apply_warp of {KNEE_VOLUMES} x {kshape} f32 (smooth blobs, "
+              f"0..1000) with a rigid (3 "
+              f"degrees, (1, -1, 0.5) mm) + B-spline (grid {grid_shape}, U(-2, 2) mm, "
+              f"RandomState(8)) transform-file chain, order {cfg.final_interp_order}: "
+              f"{apply_ms:.3f} ms (CUDA events around the call), peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {knee_launches}; volume 0 against the port's "
+              f"CPU run of the same chain ({cpu_s:.2f} s): max|Δ| {knee_err:.3g}, {outside} "
+              f"voxels beyond 1e-4 * max(1, |v|)")
+        check(outside == 0, f"knee apply_warp: {outside} voxels differ from the CPU run")
+        result.update({"knee_apply_warp_ms": apply_ms, "knee_peak_bytes": peak,
+                       "knee_max_abs_err": knee_err, "knee_cpu_s": cpu_s,
+                       "knee_grid_shape": list(grid_shape)})
+        return result
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
@@ -2313,6 +2990,9 @@ def main(argv=None):
     parser.add_argument("--qdess-only", action="store_true",
                         help="run phase 11 alone after phase 1 (no kernel is built or "
                              "checked); prints no result")
+    parser.add_argument("--scans-only", action="store_true",
+                        help="run phases 1, 2, 12 and 13 (the registered scans and the "
+                             "B-spline stage); prints their objects and no result")
     opts = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2341,6 +3021,17 @@ def main(argv=None):
         return 0
 
     build_all()  # phase 2
+    if opts.scans_only:
+        t_start = time.perf_counter()
+        scans = phase_registered_scans(dt, dev, card)
+        print(f"phase 12: {time.perf_counter() - t_start:.1f} s")
+        t_start = time.perf_counter()
+        bspline = phase_bspline(dt, dev, card)
+        print(f"phase 13: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"registered_scans": scans}))
+        print(json.dumps({"bspline": bspline}))
+        return 0
     worst = small_cases(dev)  # phase 3
     if opts.quick:
         print(f"quick run: small cases agree, worst |Δ| {worst}")
@@ -2372,6 +3063,14 @@ def main(argv=None):
     qdess_knee = phase_qdess_knee(dt, dev, card, model=seg_model)
     print(f"phase 11: {time.perf_counter() - t_start:.1f} s")
     del seg_model
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    scans = phase_registered_scans(dt, dev, card)
+    print(f"phase 12: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    bspline = phase_bspline(dt, dev, card)
+    print(f"phase 13: {time.perf_counter() - t_start:.1f} s")
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).
@@ -2386,6 +3085,21 @@ def main(argv=None):
             "bench_192x192x48_order1_kernel_ms": knee["bench_kernel_ms"],
             **{k: v for k, v in reg.items() if k not in ("launches", "max_abs_err")}}
     warp["max_abs_err"] = max(warp["max_abs_err"], reg["max_abs_err"])
+    # Phase 12's paths: their launches, and the kernel at the CubeQuant's shapes.
+    cq = scans["cubequant"]
+    warp["scan_launches"] = {
+        "cubequant": {k: cq["launches"][k]["warp_grid"] for k in ("intraregister", "interregister")},
+        "mapss_intraregister": scans["mapss"]["launches"]["intraregister"]["warp_grid"],
+        "cones_interregister": scans["cones"]["launches"]["interregister"]["warp_grid"]}
+    warp["cubequant_warps"] = cq["warps"]
+    warp["max_abs_err"] = max(warp["max_abs_err"],
+                              *(w["max_abs_err"] for w in cq["warps"].values()))
+    mono["scan_launches"] = {
+        "cubequant_t1rho": cq["launches"]["fit"]["monoexp_lm"],
+        **{f"mapss_{k}": scans["mapss"]["launches"][k]["monoexp_lm"] for k in ("t1rho", "t2")},
+        "cones_t2star": scans["cones"]["launches"]["t2star"]["monoexp_lm"]}
+    mono["max_abs_err"] = max(mono["max_abs_err"], cq["fit_max_abs_err"],
+                              scans["mapss"]["max_abs_err"], scans["cones"]["max_abs_err"])
 
     sources = {
         "monoexp_lm": ("dosma_tpu_torch/csrc/monoexp_lm.cu", "dosma_tpu/ops/monoexp_pallas.py:92"),
@@ -2408,6 +3122,8 @@ def main(argv=None):
     print(card)
     print(json.dumps({"segmentation": seg}))
     print(json.dumps({"qdess_knee": qdess_knee}))
+    print(json.dumps({"registered_scans": scans}))
+    print(json.dumps({"bspline": bspline}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ NIfTI I/O (``read``/``write``/``load``/``save``, the readers and writers,
 ``load_to_device``), voxelwise monoexponential relaxometry, the
 curve-fitting API (``CurveFitter``, ``PolyFitter``, ``curve_fit``,
 ``polyfit``), quantitative maps and their metrics (``quant_vals``), the
-numpy routines on volumes, matrix registration (``register``,
-``apply_warp`` and the ``ops.registration`` functions), the segmentation
+numpy routines on volumes, registration (``register``, ``apply_warp`` and
+the ``ops.registration`` functions), the segmentation
 models (``models``), the knee tissues and their regional analytics
 (``Tissue``, ``FemoralCartilage``, ``TibialCartilage``,
-``PatellarCartilage``, ``Meniscus``) and the qDESS scan (``QDess``).
+``PatellarCartilage``, ``Meniscus``), the qDESS scan (``QDess``) and the
+registered scans (``CubeQuant``, ``Mapss``, ``Cones``) with the B-spline
+(FFD) registration stage.
 Importing it loads torch, numpy and scipy only: no jax, pandas, yaml or
 matplotlib. Kernels and the host C++ libraries are compiled on first use.
 
@@ -91,7 +93,7 @@ from dosma_tpu_torch.ops.registration import (  # noqa: F401
     warp_volume_batch,
     warp_volume_chain,
 )
-from dosma_tpu_torch.scan_sequences import QDess  # noqa: F401
+from dosma_tpu_torch.scan_sequences import Cones, CubeQuant, Mapss, QDess  # noqa: F401
 from dosma_tpu_torch.tissues import (  # noqa: F401
     FemoralCartilage,
     Meniscus,

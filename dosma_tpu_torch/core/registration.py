@@ -1,15 +1,15 @@
 """Registration facade: ``register`` / ``apply_warp``.
 
-Counterpart of ``dosma_tpu/core/registration.py`` for chains of matrix
-stages (translation, rigid, affine); chains with a B-spline stage raise
-until ``ops/bspline.py`` is ported (ROADMAP queue 1, item 7). Contracts:
+Counterpart of ``dosma_tpu/core/registration.py``: chains of matrix stages
+(translation, rigid, affine) and of B-spline (FFD) stages. Contracts:
 
 - inputs are MedicalVolumes or paths (NIfTI files, DICOM series directories,
   read by ``format_io_utils.generic_load``); outputs land in
   ``output_path/moving-<idx>/`` as ``TransformParameters.<stage>.json`` and,
   unless ``save_volumes=False``, ``result.<stage>.nii.gz``;
 - sequential parameter stages compose into one transform and one resample,
-  with collated or per-stage output specs;
+  with collated or per-stage output specs; a chain with a B-spline stage
+  registers stage by stage, each stage on the previous stages' output;
 - target and moving masks (``use_mask`` per stage);
 - transform reuse through :func:`apply_warp`. Transform files keep
   ``"format": "dosma_tpu-transform-v1"`` and the keys of ``dosma_tpu``, so a
@@ -49,6 +49,8 @@ from dosma_tpu_torch.ops.registration import (
     compose_transforms,
     register_chain,
     register_chain_batch,
+    register_pair,
+    register_pair_bspline,
     warp_volume,
     warp_volume_batch,
     warp_volume_chain,
@@ -430,8 +432,9 @@ def register(
 
     ``parameters``: see the module docstring; several run as sequential
     stages whose transforms compose. Every stage and the final warp of each
-    moving image run on the compute device, the final warp as one launch of
-    the warp kernel. ``save_volumes=False`` skips writing
+    moving image run on the compute device; a matrix-only chain's final warp
+    is one launch of the warp kernel, a chain with a B-spline stage samples
+    through the point samplers. ``save_volumes=False`` skips writing
     ``result.*.nii.gz`` (transform files are always written), so nothing
     but 4x4 matrices comes back to the host unless ``return_volumes`` asks
     for host-backed volumes. ``num_workers``, ``num_threads`` and
@@ -460,12 +463,6 @@ def register(
         any_mask = target_mask is not None or any(m is not None for m in moving_masks)
         use_mask = [any_mask] * len(parameters)
 
-    if any(cfg.transform == "bspline" for cfg in stage_cfgs):
-        raise NotImplementedError(
-            "B-spline registration stages are not ported to dosma_tpu_torch yet "
-            "(ROADMAP queue 1, item 7: ops/bspline.py, register_pair_bspline)"
-        )
-
     target_mv = _load_volume(target)
     target_mask_mv = _load_volume(target_mask) if target_mask is not None else None
     moving_mvs = [_load_volume(m) for m in moving]
@@ -473,7 +470,9 @@ def register(
     if len(moving_mask_mvs) == 1 and len(moving_mvs) > 1:
         moving_mask_mvs = moving_mask_mvs * len(moving_mvs)
 
-    outputs, volumes = _register_matrix_chains(
+    matrix_only = all(cfg.transform != "bspline" for cfg in stage_cfgs)
+    run = _register_matrix_chains if matrix_only else _register_sequential_fallback
+    outputs, volumes = run(
         target_mv, target_mask_mv, moving_mvs, moving_mask_mvs, stage_cfgs,
         use_mask, output_path, sequential, collate, return_volumes, save_volumes,
     )
@@ -580,6 +579,92 @@ def _register_matrix_chains(
             stage_outputs.append(
                 RegistrationOutputSpec(transform=[tpath], warped_file=wf,
                                        warped_files=[wf] if wf else [])
+            )
+
+        outputs.append(
+            _collate_outputs(stage_cfgs, transform_paths, warped_files,
+                             stage_outputs, sequential, collate)
+        )
+        if return_volumes:
+            volumes.append(MedicalVolume(warped.cpu().numpy() if host else warped, fixed_affine))
+    return outputs, volumes
+
+
+def _register_sequential_fallback(
+    target_mv, target_mask_mv, moving_mvs, moving_mask_mvs, stage_cfgs,
+    use_mask, output_path, sequential, collate, return_volumes, save_volumes,
+):
+    """Stage-by-stage registration of chains with a B-spline stage, on the
+    compute device.
+
+    Each stage after the first registers the previous stages' warped image
+    (on the fixed grid), and a moving mask goes through the same chain. The
+    full-grid warp of a stage runs only when something takes it: the next
+    stage, a result file (``save_volumes``) or, for the last stage, the
+    returned volumes.
+    """
+    fixed_affine = target_mv.affine
+    fixed_shape = tuple(int(s) for s in target_mv.shape[:3])
+    host = all(not isinstance(mv.volume, torch.Tensor) for mv in [target_mv, *moving_mvs])
+    dev = compute_device(target_mv.volume, *(mv.volume for mv in moving_mvs))
+    fixed = _on(target_mv.volume, dev)
+    tmask = (_on(target_mask_mv.reformat_as(target_mv).volume, dev)
+             if target_mask_mv is not None else None)
+
+    outputs, volumes = [], []
+    for idx, moving_mv in enumerate(moving_mvs):
+        moving = _on(moving_mv.volume, dev)
+        moving_affine = moving_mv.affine
+        reg_dir = os.path.join(output_path, f"moving-{idx}")
+        os.makedirs(reg_dir, exist_ok=True)
+        moving_mask_mv = moving_mask_mvs[idx] if idx < len(moving_mask_mvs) else None
+        mmask0 = (_on(moving_mask_mv.reformat_as(moving_mv).volume, dev)
+                  if moving_mask_mv is not None else None)
+
+        stages, transform_paths, warped_files, stage_outputs = [], [], [], []
+        warped = None
+        for s_idx, cfg in enumerate(stage_cfgs):
+            mask = tmask if use_mask[s_idx] else None
+            mmask = mmask0 if use_mask[s_idx] else None
+            if stages:
+                cur_moving, cur_affine = warped, fixed_affine
+                if mmask is not None:
+                    # The mask lies on the original moving grid: it goes
+                    # through the same chain as the image.
+                    mmask = warp_volume_chain(mmask, stages, fixed_affine, moving_affine,
+                                              fixed_shape)
+            else:
+                cur_moving, cur_affine = moving, moving_affine
+
+            if cfg.transform == "bspline":
+                ctrl, spacing_vox, _info = register_pair_bspline(
+                    fixed, fixed_affine, cur_moving, cur_affine, cfg,
+                    fixed_mask=mask, moving_mask=mmask,
+                )
+                stages.append(("bspline", ctrl, spacing_vox))
+            else:
+                M, _theta, _info = register_pair(
+                    fixed, fixed_affine, cur_moving, cur_affine, cfg,
+                    fixed_mask=mask, moving_mask=mmask,
+                )
+                stages.append(("matrix", M))
+
+            tpath = os.path.join(reg_dir, f"TransformParameters.{s_idx}.json")
+            _save_transform_file(tpath, stages[-1], cfg, target_mv, moving_mv)
+            transform_paths.append(tpath)
+
+            last = s_idx == len(stage_cfgs) - 1
+            if (not last) or save_volumes or return_volumes:
+                warped = warp_volume_chain(moving, stages, fixed_affine, moving_affine,
+                                           fixed_shape, order=int(cfg.final_interp_order))
+            wpath = None
+            if save_volumes:
+                wpath = os.path.join(reg_dir, f"result.{s_idx}.nii.gz")
+                NiftiWriter().save(MedicalVolume(warped.cpu().numpy(), fixed_affine), wpath)
+                warped_files.append(wpath)
+            stage_outputs.append(
+                RegistrationOutputSpec(transform=[tpath], warped_file=wpath,
+                                       warped_files=[wpath] if wpath else [])
             )
 
         outputs.append(

@@ -1,8 +1,9 @@
-"""Matrix image registration: pyramid stages, metrics, chains and warps.
+"""Image registration: pyramid stages, metrics, chains and warps.
 
-Counterpart of the matrix-stage subset of ``dosma_tpu/ops/registration.py``
-(translation, rigid and affine transforms; the B-spline stage is ROADMAP
-queue 1, item 7). Each stage is an in-process optimization:
+Counterpart of ``dosma_tpu/ops/registration.py``: translation, rigid and
+affine transforms, and the multi-grid B-spline (FFD) stage of
+:func:`register_pair_bspline` (:mod:`dosma_tpu_torch.ops.bspline`). Each
+stage is an in-process optimization:
 
 - transforms parameterized in world (RAS) space about the fixed image's
   centre (rotations in radians, translations in mm, affine deviations
@@ -21,7 +22,10 @@ queue 1, item 7). Each stage is an in-process optimization:
 Stages of a chain compose in world space, so a chain resamples the moving
 image once: the final warp of the moving volume and of every extra volume
 on its grid is one launch of the CUDA kernel ``csrc/warp_grid.cu``
-(:mod:`dosma_tpu_torch.ops.warp`) for tensors on a card.
+(:mod:`dosma_tpu_torch.ops.warp`) for tensors on a card. A chain with a
+B-spline stage maps each fixed point through every stage and samples the
+moving image at the resulting points (:func:`warp_volume_chain`), in chunks
+of the fixed grid, as ``dosma_tpu`` does with its point samplers.
 
 Host (numpy) inputs are computed on the package's default device
 (:mod:`dosma_tpu_torch.core.device`) and results come back as host
@@ -41,11 +45,19 @@ import torch
 
 from dosma_tpu_torch.core.device import compute_device
 from dosma_tpu_torch.ops import interp
+from dosma_tpu_torch.ops.bspline import (
+    bending_energy,
+    bspline_displacement,
+    full_f32,
+    make_control_grid,
+    subdivide_control_grid,
+)
 from dosma_tpu_torch.ops.warp import warp_grid_batched
 
 __all__ = [
     "RegistrationParams",
     "register_pair",
+    "register_pair_bspline",
     "register_chain",
     "register_chain_batch",
     "register_pair_batch",
@@ -77,8 +89,9 @@ class RegistrationParams:
     # only), 1 or 3.
     interp_order: int = 1
     final_interp_order: int = 3
-    # B-spline (FFD) stage options, kept for parameter-file parity; the
-    # B-spline stage itself is not ported yet.
+    # B-spline (FFD) stage options. ``grid_spacing_vox`` (voxel units,
+    # scalar or per axis, elastix FinalGridSpacingInVoxels) overrides
+    # ``grid_spacing_mm`` when set.
     grid_spacing_mm: float = 32.0
     grid_spacing_vox: Optional[Tuple[float, ...]] = None
     bending_weight: float = 1e-2
@@ -87,8 +100,9 @@ class RegistrationParams:
     # ``resolutions``.
     pyramid_schedule: Optional[Tuple[float, ...]] = None
     # Per-level budgets, coarsest → finest (elastix's per-resolution
-    # MaximumNumberOfIterations / NumberOfSpatialSamples). Matrix stages run
-    # the flat ``iterations`` / ``num_samples`` at every level (a schedule
+    # MaximumNumberOfIterations / NumberOfSpatialSamples). The B-spline
+    # multi-grid chain honours them stage by stage; matrix stages run the
+    # flat ``iterations`` / ``num_samples`` at every level (a schedule
     # collapses to its max, warned at parse time).
     iteration_schedule: Optional[Tuple[int, ...]] = None
     sample_schedule: Optional[Tuple[int, ...]] = None
@@ -140,14 +154,8 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     them by ~0.1 mm and skew the registration, so TF32 is off around the
     product whatever the caller's global setting.
     """
-    precision = torch.get_float32_matmul_precision()
-    if not a.is_cuda or precision == "highest":
+    with full_f32():
         return torch.matmul(a, b)
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return torch.matmul(a, b)
-    finally:
-        torch.set_float32_matmul_precision(precision)
 
 
 def _inv(m: torch.Tensor) -> torch.Tensor:
@@ -225,6 +233,19 @@ def _trilinear_sample(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         return interp._trilinear_gather(vol, coords)
     return torch.cat([interp._trilinear_gather(vol, coords[:, s:s + chunk])
                       for s in range(0, n, chunk)])
+
+
+def _sample_order(src: torch.Tensor, m_idx: torch.Tensor, order: int) -> torch.Tensor:
+    """Sample at index coordinates (3, N) at spline ``order``: 3 samples the
+    4x4x4 neighbourhood of ``src``, the moving volume's prefiltered, padded
+    coefficients (:func:`~dosma_tpu_torch.ops.interp.cubic_coeffs`, taken
+    once for every chunk of points); 0 is nearest (labels and masks) and 1
+    trilinear, both of the volume itself."""
+    if order == 3:
+        return interp.cubic_sample_coeffs(src, m_idx)
+    if order == 0:
+        return interp.nearest_sample(src, m_idx)
+    return _trilinear_sample(src, m_idx)
 
 
 def _world_matrix_to_index_map(M, fixed_affine, moving_affine) -> torch.Tensor:
@@ -456,6 +477,14 @@ def _level_draws(seed: int, level: int, iterations: int, num_samples: int,
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 1_000_003 + int(level)) % (2**63))
     return torch.rand((iterations, 3, num_samples), generator=gen, device=device)
+
+
+def _bspline_draws(seed: int, stage: int, iterations: int, num_samples: int,
+                   device) -> torch.Tensor:
+    """Uniform [0, 1) draws (iterations, 3, num_samples) of one B-spline
+    stage, from a generator seeded by (seed, stage) as :func:`_level_draws`
+    seeds a pyramid level's."""
+    return _level_draws(seed, stage, iterations, num_samples, device)
 
 
 def _pyramid_core(
@@ -919,26 +948,260 @@ def register_pair_batch(
 
 
 # ----------------------------------------------------------------------
+# The B-spline (FFD) stage
+# ----------------------------------------------------------------------
+def _optimize_bspline_chain(
+    fixed_arr, fixed_affine, fixed_mask,
+    moving_arr, moving_affine, moving_mask,
+    ctrl0, spacings, bending_weight: float, seed: int,
+    stage_statics, metric: str, num_bins: int,
+    mi_kernel: str = "cubic", interp_order: int = 1,
+):
+    """The multi-grid FFD chain (Rueckert's schedule, elastix's
+    GridSpacingSchedule with a FixedSmoothingImagePyramid).
+
+    Each stage optimizes the control grid on the full-resolution pair
+    smoothed by the stage's sigma, with the stage's own iteration and sample
+    budgets, Adam under a cosine schedule and a Polyak average over the
+    last quarter; the grid is then subdivided (exact knot insertion) for
+    the next, finer stage. A zero-iteration stage passes the grid through.
+    Tensors on one device; ``stage_statics`` per stage ``(grid_shape,
+    sigma, radius, iterations, num_samples, lr)``; ``spacings`` (stages, 3)
+    control spacings in fixed-index units. Returns ``(ctrl, losses per
+    stage)``.
+    """
+    dev = fixed_arr.device
+    fshape = tuple(fixed_arr.shape)
+    inv_moving = _inv(moving_affine)
+    f_lo, f_hi = torch.min(fixed_arr), torch.max(fixed_arr)
+    m_lo, m_hi = torch.min(moving_arr), torch.max(moving_arr)
+    shape_m1 = torch.tensor(fshape, dtype=torch.float32, device=dev) - 1
+    m_hi_idx = torch.tensor(moving_arr.shape, dtype=torch.float32, device=dev)[:, None] - 1
+
+    ctrl = ctrl0
+    losses_all = []
+    n_stages = len(stage_statics)
+    for g, (grid_shape, sigma, radius, iterations, num_samples, lr) in enumerate(stage_statics):
+        if iterations <= 0:
+            # elastix allows 0 in a per-level MaximumNumberOfIterations.
+            losses_all.append(torch.zeros(0, device=dev))
+            if g + 1 < n_stages:
+                ctrl = subdivide_control_grid(ctrl, stage_statics[g + 1][0])
+            continue
+        spacing_vox = spacings[g]
+        if sigma > 0:
+            f_s = _gauss_smooth3(fixed_arr, sigma, radius)
+            m_s = _gauss_smooth3(moving_arr, sigma, radius)
+            mask_s = _gauss_smooth3(fixed_mask, sigma, radius) if fixed_mask is not None else None
+            mmask_s = (_gauss_smooth3(moving_mask, sigma, radius)
+                       if moving_mask is not None else None)
+        else:
+            f_s, m_s, mask_s, mmask_s = fixed_arr, moving_arr, fixed_mask, moving_mask
+        m_cp = interp.cubic_coeffs(m_s) if interp_order == 3 else None
+
+        # The fixed side does not depend on the grid: draw every iteration's
+        # coordinates up front and sample fixed values, mask weights and
+        # world coordinates in one pass.
+        u = _bspline_draws(seed, g, iterations, num_samples, dev)
+        idx_all = u * shape_m1[None, :, None]
+        flat = idx_all.permute(1, 0, 2).reshape(3, iterations * num_samples)
+        fixed_vals_all = _trilinear_sample(f_s, flat).reshape(iterations, num_samples)
+        w0_all = (_trilinear_sample(mask_s, flat).reshape(iterations, num_samples)
+                  if mask_s is not None else None)
+        flat_h = torch.cat([flat, torch.ones((1, flat.shape[1]), device=dev)])
+        world_all = _mm(fixed_affine, flat_h).reshape(4, iterations, num_samples).permute(1, 0, 2)
+
+        def loss_fn(ctrl_g, it, spacing_vox=spacing_vox, m_s=m_s, m_cp=m_cp,
+                    mmask_s=mmask_s, w0_all=w0_all):
+            disp = bspline_displacement(ctrl_g, idx_all[it], spacing_vox)
+            world = world_all[it]
+            world = torch.cat([world[:3] + disp, world[3:]])
+            m_idx = _mm(inv_moving, world)[:3]
+            if interp_order == 3:
+                moving_vals = interp.cubic_sample_coeffs(m_cp, m_idx)
+            else:
+                moving_vals = _trilinear_sample(m_s, m_idx)
+            inside = torch.all((m_idx >= 0) & (m_idx <= m_hi_idx), dim=0)
+            w0 = w0_all[it] if w0_all is not None else 1.0
+            weights = w0 * (0.01 + 0.99 * inside.to(torch.float32))
+            if mmask_s is not None:
+                weights = weights * _trilinear_sample(mmask_s, m_idx)
+            fixed_vals = fixed_vals_all[it]
+            if metric == "mi":
+                data_loss = _soft_mi(fixed_vals, moving_vals, weights, num_bins, f_lo, f_hi,
+                                     m_lo, m_hi, kernel=mi_kernel)
+            elif metric == "ncc":
+                data_loss = _ncc(fixed_vals, moving_vals, weights)
+            else:
+                data_loss = _mse(fixed_vals, moving_vals, weights)
+            return data_loss + bending_weight * bending_energy(ctrl_g)
+
+        lrs = _cosine_lrs(lr, iterations)
+        # Polyak tail average: the stochastic metric makes the annealed
+        # iterates bounce around the optimum; the last quarter's mean
+        # cancels that noise. Only the average propagates.
+        tail_start = max(0, iterations - max(1, iterations // 4))
+        mu, nu = torch.zeros_like(ctrl), torch.zeros_like(ctrl)
+        acc = torch.zeros_like(ctrl)
+        stage_losses = []
+        for it in range(iterations):
+            ctrl_g = ctrl.detach().requires_grad_(True)
+            with full_f32():  # the backward's products too
+                loss = loss_fn(ctrl_g, it)
+                (grad,) = torch.autograd.grad(loss, ctrl_g)
+            with torch.no_grad():
+                ctrl, mu, nu = _adam_step(ctrl_g.detach(), grad, mu, nu, it, lrs[it])
+                if it >= tail_start:
+                    acc = acc + ctrl
+            stage_losses.append(loss.detach())
+        ctrl = acc / float(iterations - tail_start)
+        losses_all.append(torch.stack(stage_losses))
+        if g + 1 < n_stages:
+            ctrl = subdivide_control_grid(ctrl, stage_statics[g + 1][0])
+    return ctrl, tuple(losses_all)
+
+
+def _bspline_stage_plan(fixed_shape, fixed_affine, params: RegistrationParams):
+    """Coarse → fine multi-grid plan: per-stage control grid shape and
+    spacing (index units), smoothing sigma and learning rate.
+
+    Stage ``g`` of ``n`` uses the control spacing ``final * 2^(n-1-g)`` and
+    the matrix pyramid's sigma for that level; grid shapes follow
+    :func:`~dosma_tpu_torch.ops.bspline.make_control_grid`.
+    """
+    sigmas = _stage_sigmas(params)
+    n = len(sigmas)
+    _, spacing_final = make_control_grid(
+        fixed_shape, fixed_affine, params.grid_spacing_mm, params.grid_spacing_vox
+    )
+    shapes, spacings, stage_sigmas, lrs = [], [], [], []
+    for g in range(n):
+        shape, s = make_control_grid(fixed_shape, fixed_affine, None,
+                                     grid_spacing_vox=spacing_final * (2 ** (n - 1 - g)))
+        shapes.append(shape)
+        spacings.append(s.astype(np.float32))
+        stage_sigmas.append(float(sigmas[g]))
+        # Displacements are in mm: coarse grids take proportionally larger steps.
+        lrs.append(params.learning_rate * float(np.mean(s)))
+    return shapes, spacings, stage_sigmas, lrs
+
+
+def register_pair_bspline(
+    fixed_arr,
+    fixed_affine: np.ndarray,
+    moving_arr,
+    moving_affine: np.ndarray,
+    params: RegistrationParams,
+    fixed_mask=None,
+    moving_mask=None,
+):
+    """Multi-grid, multi-resolution B-spline FFD registration.
+
+    Returns ``(ctrl (3, gx, gy, gz), spacing_vox (3,), info)`` as host
+    arrays: the control displacements in world mm over the full-resolution
+    fixed index grid at the FINAL (``params.grid_spacing_mm``) spacing, and
+    the per-stage losses with the stall diagnostics.
+    """
+    dev = compute_device(moving_arr, fixed_arr)
+    fixed_dev = _f32(fixed_arr, dev)
+    moving_dev = _f32(moving_arr, dev)
+    shapes, spacings, sigmas, lrs = _bspline_stage_plan(tuple(fixed_dev.shape), fixed_affine,
+                                                        params)
+    stage_iters, stage_samples = params.level_budget(len(shapes))
+    stage_statics = tuple(
+        # The stage's own kernel radius: a fine stage does not pay the
+        # coarsest stage's taps.
+        (shapes[g], sigmas[g], max(1, int(np.ceil(3.0 * float(sigmas[g])))),
+         stage_iters[g], stage_samples[g], float(lrs[g]))
+        for g in range(len(shapes))
+    )
+    ctrl, losses = _optimize_bspline_chain(
+        fixed_dev, _f32(fixed_affine, dev),
+        _f32(fixed_mask, dev) if fixed_mask is not None else None,
+        moving_dev, _f32(moving_affine, dev),
+        _f32(moving_mask, dev) if moving_mask is not None else None,
+        torch.zeros((3, *shapes[0]), dtype=torch.float32, device=dev),
+        _f32(np.stack(spacings), dev), float(np.float32(params.bending_weight)),
+        int(params.seed), stage_statics, params.metric, int(params.num_bins),
+        mi_kernel=params.mi_kernel, interp_order=int(params.interp_order),
+    )
+    info = {"losses": [l.cpu().numpy() for l in losses]}
+    info.update(_stall_diagnostics(info["losses"]))
+    return ctrl.cpu().numpy(), np.asarray(spacings[-1]), info
+
+
+# ----------------------------------------------------------------------
 # Transform chains
 # ----------------------------------------------------------------------
+_CHAIN_CHUNK = 1 << 20  # fixed-grid points a pass of a mixed chain
+
+
+def _grid_points(fixed_shape, start: int, stop: int, device) -> torch.Tensor:
+    """Homogeneous index coordinates (4, stop - start) of the fixed grid's
+    points ``start .. stop-1`` in C order."""
+    _d0, d1, d2 = fixed_shape
+    lin = torch.arange(start, stop, dtype=torch.int64, device=device)
+    pts = torch.stack([lin // (d1 * d2), (lin // d2) % d1, lin % d2]).to(torch.float32)
+    return torch.cat([pts, torch.ones((1, pts.shape[1]), device=device)])
+
+
+def _warp_chain_impl(moving_arr, fixed_affine, moving_affine, payloads, kinds,
+                     fixed_shape, order: int = 1):
+    """Resample ``moving_arr`` through a mixed chain: each fixed point goes
+    through the stages innermost-last, ``y = T1(T2(...Tn(x)))``, then one
+    interpolation at spline ``order``. The fixed grid runs in chunks of
+    :data:`_CHAIN_CHUNK` points, which bounds the world-coordinate and
+    displacement temporaries (a knee's 23.6M points would take 377 MB for
+    the homogeneous grid alone)."""
+    dev = moving_arr.device
+    inv_fixed = _inv(fixed_affine)
+    inv_moving = _inv(moving_affine)
+    src = interp.cubic_coeffs(moving_arr) if order == 3 else moving_arr
+    n = int(np.prod(fixed_shape))
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    stages = list(zip(kinds, payloads))[::-1]
+    for start in range(0, n, _CHAIN_CHUNK):
+        stop = min(n, start + _CHAIN_CHUNK)
+        world = _mm(fixed_affine, _grid_points(fixed_shape, start, stop, dev))
+        for kind, payload in stages:
+            if kind == "matrix":
+                world = _mm(payload[0], world)
+            else:
+                ctrl, spacing_vox = payload
+                disp = bspline_displacement(ctrl, _mm(inv_fixed, world)[:3], spacing_vox)
+                world = torch.cat([world[:3] + disp, world[3:]])
+        out[start:stop] = _sample_order(src, _mm(inv_moving, world)[:3], order)
+    return out.reshape(fixed_shape)
+
+
 def warp_volume_chain(moving_arr, stages, fixed_affine, moving_affine, fixed_shape,
                       order: int = 1):
-    """Resample through a chain of ``("matrix", M)`` stages in estimation
-    order: the matrices compose (:func:`compose_transforms`) and the moving
-    image is interpolated once at spline ``order``. ``("bspline", ...)``
-    stages are not ported yet (ROADMAP queue 1, item 7) and raise."""
+    """Resample through a transform chain of ``("matrix", M)`` and
+    ``("bspline", ctrl, spacing_vox)`` stages in estimation order, with ONE
+    final interpolation at spline ``order`` (0 nearest, 1 trilinear, 3
+    cubic B-spline).
+
+    A matrix-only chain composes (:func:`compose_transforms`) and warps
+    through the warp kernel (:func:`warp_volume`); a chain with a B-spline
+    stage maps the fixed points through each stage and samples the moving
+    image at them (:func:`_warp_chain_impl`). Host input is computed on the
+    default device and returned as a numpy array.
+    """
+    fixed_shape = tuple(int(s) for s in fixed_shape)
     stages = list(stages)
     kinds = [kind for kind, *_ in stages]
     bad = [k for k in kinds if k not in ("matrix", "bspline")]
     if bad:
         raise ValueError(f"Unknown stage kind {bad[0]}")
-    if "bspline" in kinds:
-        raise NotImplementedError(
-            "B-spline transform stages are not ported to dosma_tpu_torch yet "
-            "(ROADMAP queue 1, item 7: ops/bspline.py and the mixed warp_volume_chain)"
-        )
-    M = compose_transforms([payload[0] for _kind, *payload in stages])
-    return warp_volume(moving_arr, M, fixed_affine, moving_affine, fixed_shape, order=order)
+    if "bspline" not in kinds:
+        M = compose_transforms([payload[0] for _kind, *payload in stages])
+        return warp_volume(moving_arr, M, fixed_affine, moving_affine, fixed_shape, order=order)
+    host = not isinstance(moving_arr, torch.Tensor)
+    dev = compute_device(moving_arr)
+    payloads = [tuple(_f32(x, dev) for x in payload) for _kind, *payload in stages]
+    out = _warp_chain_impl(_f32(moving_arr, dev), _f32(fixed_affine, dev),
+                           _f32(moving_affine, dev), payloads, kinds, fixed_shape, int(order))
+    return _host_or_tensor(out, host)
 
 
 def compose_transforms(matrices: Sequence[np.ndarray]) -> np.ndarray:

@@ -257,3 +257,91 @@ def test_qdess_femoral_rows_on_the_card_equal_the_cpu(tmp_path, card):
     for m, w in zip(maps, maps_cpu):
         np.testing.assert_array_equal(np.isnan(m["data"]), np.isnan(w["data"]))
         np.testing.assert_allclose(m["data"], w["data"], rtol=1e-9, atol=0, equal_nan=True)
+
+
+def _write_cubequant_series(path, shape=(48, 48, 16), times=(1.0, 10.0, 30.0, 60.0)):
+    """bench.py's config 3 at a small size (a bright box plus noise, spin
+    lock i rolled by (i, -i, 0)) as a uint16 sagittal series with EchoTime
+    = the spin-lock time; returns the affine."""
+    from dosma_tpu_torch.core.io.dicom import Dataset
+    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+
+    rs = np.random.RandomState(3)
+    relax = rs.rand(*shape).astype(np.float32) * 80 + 20
+    base = np.zeros(shape, np.float32)
+    base[shape[0] // 4: -(shape[0] // 4), shape[1] // 4: -(shape[1] // 4), 2:-2] = 1000.0
+    base += 50.0 * rs.rand(*shape).astype(np.float32)
+    pixels = np.stack([np.rint(np.roll(base * np.exp(-t / relax), (i, -i, 0), axis=(0, 1, 2)))
+                       .astype(np.uint16) for i, t in enumerate(times)], axis=-1)
+    series = generate_uid()
+    headers = np.empty((1, 1, shape[2], len(times)), dtype=object)
+    for e, t in enumerate(times):
+        for s in range(shape[2]):
+            ds = Dataset()
+            ds.SOPInstanceUID = generate_uid()
+            ds.SeriesInstanceUID = series
+            ds.Modality = "MR"
+            ds.InstanceNumber = e * shape[2] + s + 1
+            ds.EchoNumbers = e + 1
+            ds.EchoTime = t
+            ds.Rows, ds.Columns = shape[0], shape[1]
+            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
+            ds.PixelRepresentation = 0
+            ds.SamplesPerPixel = 1
+            ds.PhotometricInterpretation = "MONOCHROME2"
+            ds.PixelSpacing = [0.5, 0.5]
+            ds.SliceThickness = 1.0
+            ds.ImagePositionPatient = [1.0 * s, 0.0, 0.0]
+            ds.ImageOrientationPatient = [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
+            headers[0, 0, s, e] = ds
+    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    dt.DicomWriter().save(dt.MedicalVolume(pixels, affine, headers=headers), path)
+    return affine
+
+
+@pytest.mark.cuda
+def test_cubequant_path_on_the_card(tmp_path, card):
+    """from_dicom(to_device=True) -> intraregister -> interregister ->
+    generate_t1_rho_map on the card: one warp_grid launch per registration
+    and one monoexp_lm launch for the map, which stays on the card and
+    equals the CPU's fit of the same registered volumes."""
+    from dosma_tpu_torch.ops.monoexp import monoexp_lm
+    from dosma_tpu_torch.ops.warp import warp_grid
+
+    affine = _write_cubequant_series(str(tmp_path / "series"))
+    scan = dt.CubeQuant.from_dicom(str(tmp_path / "series"), to_device=True)
+    assert scan.spin_lock_times == [1.0, 10.0, 30.0, 60.0]
+    target = np.roll(scan.volumes[0].cpu().A.astype(np.float32), (2, -1, 1), axis=(0, 1, 2))
+    target_path = str(tmp_path / "target.nii.gz")
+    dt.MedicalVolume(target, affine).save_volume(target_path)
+    scan.temp_path = str(tmp_path / "scan")
+
+    warp_grid.launches = 0
+    scan.intraregister()
+    assert warp_grid.launches == 1
+    scan.interregister(target_path)
+    assert warp_grid.launches == 2
+    assert all(v.volume.is_cuda for v in scan.volumes)
+    monoexp_lm.launches = 0
+    qv = scan.generate_t1_rho_map()
+    assert monoexp_lm.launches == 1 and qv.volumetric_map.volume.is_cuda
+
+    with dt.default_device("cpu"):
+        host = dt.CubeQuant([v.cpu() for v in scan.volumes], scan.spin_lock_times)
+        want = host.generate_t1_rho_map()
+    # The card's exp and log differ from the CPU's by ulps, so the two LM
+    # runs stop apart: the port's tolerance for fits of noisy data (the
+    # registered volumes are interpolated, not exact exponentials), 1e-3
+    # relative, plus the rounding to 3 decimals, on the box's voxels. The
+    # background's integer signals of 0..50 make ill-conditioned fits, which
+    # those ulps move further (43 of 36,864 voxels, up to 0.171, in this
+    # test's first card run); there only the zeros are compared.
+    got, ref = qv.volumetric_map.cpu().A, want.volumetric_map.A
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    box = host.volumes[0].A >= 500  # an amplitude of 1000 against 0..50
+    assert box.sum() > 0.15 * box.size
+    excess = np.abs(got - ref)[box] - (1e-3 + 1e-3 * np.abs(ref[box]))
+    assert (excess <= 0).all(), (int((excess > 0).sum()), float(excess.max()))
+    np.testing.assert_allclose(qv.additional_volumes["r2"].cpu().A[box],
+                               want.additional_volumes["r2"].A[box], rtol=0, atol=1e-4)

@@ -50,7 +50,9 @@ def test_import_loads_no_jax_pandas_yaml():
         "dosma_tpu_torch.ops.analytics, dosma_tpu_torch.utils.io_utils, "
         "dosma_tpu_torch.utils.logger, dosma_tpu_torch.file_constants, "
         "dosma_tpu_torch.models, dosma_tpu_torch.models.unet2d, "
-        "dosma_tpu_torch.models.weights, dosma_tpu_torch.models.util\n"
+        "dosma_tpu_torch.models.weights, dosma_tpu_torch.models.util, "
+        "dosma_tpu_torch.ops.bspline, dosma_tpu_torch.scan_sequences.mri.cube_quant, "
+        "dosma_tpu_torch.scan_sequences.mri.mapss, dosma_tpu_torch.scan_sequences.mri.cones\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu', 'PIL', 'h5py')))"
     )
@@ -127,8 +129,8 @@ def test_exports_the_io_and_map_names(name):
 
 
 def test_names_still_missing_against_the_jax_package():
-    """Only the registered scans, get_array_module and collect_env_info are
-    left (ROADMAP queue 1, item 7)."""
+    """Only get_array_module and collect_env_info are left; the registered
+    scans are ported."""
     import re
 
     import dosma_tpu_torch
@@ -139,4 +141,6 @@ def test_names_still_missing_against_the_jax_package():
              "MedicalVolume", "AXIAL", "CORONAL", "SAGITTAL", "to_affine", "numpy_routines",
              "preferences", "debug", "setup_logger", "quant_vals"}
     missing = {n for n in lazy | eager if not hasattr(dosma_tpu_torch, n)}
-    assert missing == {"CubeQuant", "Mapss", "Cones", "get_array_module", "collect_env_info"}
+    assert missing == {"get_array_module", "collect_env_info"}
+    for name in ("CubeQuant", "Mapss", "Cones"):
+        assert getattr(dosma_tpu_torch, name).__module__.startswith("dosma_tpu_torch.")

@@ -14,8 +14,8 @@ into the port (``_level_draws``). Tolerances:
 - chains and ``register`` (injected draws): matrices within 1e-3, warped
   volumes within 1e-4 · max|v| where the final warp is order 1 and the
   map is shared;
-- transform files written by either package warp identically (1e-5 ·
-  max|v|) in the other;
+- transform files written by either package, matrix and B-spline,
+  warp identically (1e-5 · max|v|) in the other;
 - recovery of a 12° rotation by the port alone: < 0.5 voxel at the
   corners, as ``tests/core/test_registration_recovery.py`` asks of
   ``dosma_tpu``.
@@ -48,11 +48,17 @@ from dosma_tpu_torch.ops import warp as twarp
 @pytest.fixture(autouse=True)
 def _compute_on_cpu():
     """The port's entry points compute host data on the card by default;
-    these tests ask for the CPU."""
+    these tests ask for the CPU, on one thread: their tensors are small,
+    and the workers of a parallel run share the cores."""
     from dosma_tpu_torch.core.device import default_device
 
-    with default_device("cpu"):
-        yield
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with default_device("cpu"):
+            yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 SHAPE = (24, 24, 12)
@@ -308,16 +314,21 @@ def test_register_pair_and_batch(pair):
 
 
 def test_warp_volume_chain_matrix_only_and_bspline_raises(pair):
+    """Matrix-only chains, and a chain with a B-spline stage (which once
+    raised), warp as ``dosma_tpu``'s; an unknown stage kind raises."""
     fixed, moving, A = pair
     M1, M2 = _rigid_M(2.0, (0.5, 0, 0), A), _rigid_M(-1.0, (0, 0.3, 0.2), A)
-    for order in (0, 1, 3):
-        got = treg.warp_volume_chain(moving, [("matrix", M1), ("matrix", M2)], A, A, SHAPE,
-                                     order=order)
-        ref = np.asarray(jreg.warp_volume_chain(moving, [("matrix", M1), ("matrix", M2)], A, A,
-                                                SHAPE, order=order))
-        assert np.abs(got - ref).max() <= 1e-5 * max(1.0, np.abs(moving).max()), order
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        treg.warp_volume_chain(moving, [("bspline", np.zeros((3, 4, 4, 4)), 8.0)], A, A, SHAPE)
+    rs = np.random.RandomState(13)
+    ctrl = ((rs.rand(3, 6, 6, 5) - 0.5) * 2.0).astype(np.float32)
+    spacing = np.array([6.0, 6.0, 4.0])
+    for stages in ([("matrix", M1), ("matrix", M2)],
+                   [("matrix", M1), ("bspline", ctrl, spacing), ("matrix", M2)]):
+        for order in (0, 1, 3):
+            got = treg.warp_volume_chain(moving, stages, A, A, SHAPE, order=order)
+            ref = np.asarray(jreg.warp_volume_chain(moving, stages, A, A, SHAPE, order=order))
+            assert np.abs(got - ref).max() <= 1e-5 * max(1.0, np.abs(moving).max()), order
+    with pytest.raises(ValueError, match="Unknown stage kind"):
+        treg.warp_volume_chain(moving, [("spline", ctrl, spacing)], A, A, SHAPE)
 
 
 # ----------------------------------------------------------------------
@@ -384,6 +395,36 @@ def test_transform_files_warp_the_same_in_both_packages(pair, tmp_path):
                                    atol=2e-5 * np.abs(vol).max())
 
 
+def test_bspline_transform_files_warp_the_same_in_both_packages(pair, tmp_path):
+    """A rigid + B-spline chain registered by either package: its transform
+    files warp a volume the same through both packages' ``apply_warp``."""
+    fixed, moving, A = pair
+    chain = [dict(transform="rigid", metric="mse", resolutions=2, iterations=10,
+                  num_samples=512),
+             dict(transform="bspline", metric="mse", resolutions=2, iterations=10,
+                  num_samples=512, grid_spacing_mm=8.0)]
+    rt = dt.register(dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A),
+                     [treg.RegistrationParams(**c) for c in chain],
+                     output_path=str(tmp_path / "port"), save_volumes=False)
+    rj = jcore.register(dosma_tpu.MedicalVolume(fixed, A), dosma_tpu.MedicalVolume(moving, A),
+                        [jreg.RegistrationParams(**c) for c in chain],
+                        output_path=str(tmp_path / "jax"), save_volumes=False)
+    vol = (moving * 3.0 - 1.0).astype(np.float32)
+    for files in (rt["outputs"][0].transform, rj["outputs"][0].transform):
+        tj = json.load(open(files[1]))
+        assert tj["format"] == "dosma_tpu-transform-v1" and tj["transform"] == "bspline"
+        got = dt.apply_warp(dt.MedicalVolume(vol, A), transform=files)
+        ref = jcore.apply_warp(dosma_tpu.MedicalVolume(vol, A), transform=files)
+        assert isinstance(got.A, np.ndarray)
+        assert np.abs(got.A - np.asarray(ref.A)).max() <= 1e-5 * np.abs(vol).max()
+        np.testing.assert_allclose(got.affine, ref.affine)
+    # the same keys in the files of both packages
+    for name in ("TransformParameters.0.json", "TransformParameters.1.json"):
+        kt = sorted(json.load(open(tmp_path / "port" / "moving-0" / name)))
+        kj = sorted(json.load(open(tmp_path / "jax" / "moving-0" / name)))
+        assert kt == kj
+
+
 def test_register_across_grids(tmp_path):
     """Fixed and moving on different grids: the port's result agrees with
     dosma_tpu's warp of the port's own transform file."""
@@ -420,9 +461,29 @@ def test_register_options_masks_rtype_and_sequential(pair, tmp_path):
                       output_path=str(tmp_path / "m"), moving_masks=mask, use_mask=[True, False],
                       save_volumes=False)
     assert len(res["outputs"][0].transform) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        dt.register(dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A), "bspline",
-                    output_path=str(tmp_path / "b"))
+    # A chain with a B-spline stage takes the stage-by-stage path, moving
+    # masks carried through it: per-stage specs, then collated, no volumes.
+    bspline = treg.RegistrationParams(transform="bspline", metric="mse", resolutions=2,
+                                      iterations=10, num_samples=512, grid_spacing_mm=8.0)
+    chain = [ct[0], bspline]
+    outs_b, _ = dt.register(dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A), chain,
+                            output_path=str(tmp_path / "b"), moving_masks=mask, rtype=tuple,
+                            collate=False, save_volumes=False)
+    assert len(outs_b) == 1 and len(outs_b[0]) == 2
+    assert [spec.warped_file for spec in outs_b[0]] == [None, None]
+    assert sorted(os.listdir(tmp_path / "b" / "moving-0")) == [
+        "TransformParameters.0.json", "TransformParameters.1.json"]
+    files = [spec.transform[0] for spec in outs_b[0]]
+    assert "matrix" in json.load(open(files[0])) and "ctrl" in json.load(open(files[1]))
+    res_b = dt.register(dt.MedicalVolume(fixed, A), dt.MedicalVolume(moving, A), chain,
+                        output_path=str(tmp_path / "b2"), moving_masks=mask,
+                        return_volumes=True)
+    spec = res_b["outputs"][0]
+    assert len(spec.transform) == 2 and spec.warped_file.endswith("result.1.nii.gz")
+    assert len(spec.warped_files) == 2 and res_b["volumes"][0].shape == SHAPE
+    back = dt.apply_warp(dt.MedicalVolume(moving, A), transform=spec.transform)
+    np.testing.assert_allclose(back.A, res_b["volumes"][0].A, rtol=0,
+                               atol=1e-5 * np.abs(moving).max())
     with pytest.raises(FileNotFoundError, match="series_dir"):  # read as a DICOM series
         dt.register(dt.MedicalVolume(fixed, A), str(tmp_path / "series_dir"), "rigid",
                     output_path=str(tmp_path / "c"))
