@@ -7,6 +7,7 @@ Usage, from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --quick    # phases 1-3 only: build, small cases
     python3 chip_smoke.py --qdess-only  # phases 1 and 11 only
     python3 chip_smoke.py --scans-only  # phases 1, 2, 12 and 13 only
+    python3 chip_smoke.py --train-only  # phases 1, 2 and 14 only
 
 Phases (any failure raises and exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -152,8 +153,8 @@ Phases (any failure raises and exits non-zero):
      the map on 2,000 voxels inside the box and the arc (< 5e-3); fc's rows
      on the card map against its host copy (rtol 1e-9); the
      interregistered transform files warp the intraregistered volumes onto
-     the result again. Prints the first call, the warm wall (median of 3)
-     with the card's busy share (nvidia-smi), peak memory and a breakdown
+     the result again. Prints the first call's wall (no warm rerun) with
+     the card's busy share over it (nvidia-smi), peak memory and a breakdown
      (read, each registration's ms an Adam iteration, the order-3
      prefilters, the final warps' kernel against its bound, the fit, the
      rows). Then MAPSS (7 echoes, echoes 1-6 rolled by (1, -1, 0):
@@ -164,11 +165,35 @@ Phases (any failure raises and exits non-zero):
      (_bench_bspline_registration: 192x192x48 at 0.5x0.6x2.0 mm, blobs and
      a +-2-voxel sinusoidal field, RandomState(7)), held to its gates
      (residual RMSE < 0.1x, mean displacement error against the exact
-     inverse < 0.3 voxel); warm wall (median of 3), ms an iteration, busy
+     inverse < 0.3 voxel); one warm run's wall, ms an iteration, busy
      share; no warp_grid launch (the mixed chain samples points). Then
      apply_warp of 4 x 384x384x160 volumes under a rigid + B-spline
-     transform-file chain, timed with CUDA events, volume 0 against the
-     port's CPU run of the same chain (1e-4 * max(1, |v|)).
+     transform-file chain, timed with CUDA events, volume 0's first 48
+     rows against the port's CPU run of the same chain on that slab
+     (1e-4 * max(1, |v|)).
+ 14. several cards and training, in a one-rank NCCL world: first
+     ``python -m dosma_tpu_torch.parallel.dryrun --ranks <cards> --backend
+     nccl`` (its own processes; its OK line); then SegTrainer at full width
+     (num_classes 1, lr 1e-4) on 8 whitened 384x384 slices of phase 10's
+     knee with the condyle arc's labels, 5 steps on one batch: finite,
+     falling losses, each step's CUDA-event time beside the bound (3 x the
+     forward's float32 operations over 67 TFLOP/s), peak memory; a
+     checkpoint saved at step 3 and restored into a fresh trainer, whose
+     step 4 equals the live trainer's bit for bit (loss and parameters);
+     one slice's gradients on the card against float64 on the CPU, each
+     leaf within the larger of 1e-4 and float32's own error there (float32
+     on the CPU); sharded_lm_fit of the library monoexponential,
+     biexponential and a user model on phases 4-6's data: one launch of
+     the model's kernel each, rows bit-equal to the unsharded kernel's;
+     profiling.trace around a warm sharded fit (in a fresh process) holds
+     the monoexp_lm kernel;
+     sharded_register_chain_batch of two rolled phantoms (phase 7's): one
+     warp_grid launch, equal to register_chain_batch's; sharded U-Net
+     inference on 160 knee slices at full width within 1e-5 of UNet2D's
+     forward; the sharded qDESS flow on phase 11's echoes:
+     load_to_device(sharding=...), a sharded T2 map bit-equal to the
+     unsharded card map, femoral cartilage's rows equal to the unsharded
+     map's (rtol 1e-9).
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -177,12 +202,13 @@ also print the factor modelled for lane refill.
 Phases 7-8 print the point-per-thread warp kernel's times (PERF.md) and
 the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
-Each path (phases 4, 5, 6, 7, 9, 10, 11, 12, 13) runs with every launch
-count set to 0 just before it and read just after (phases 10, 11 and 13
-launch none). `--qdess-only` runs phase 11 alone after phase 1;
-`--scans-only` phases 12 and 13 after the build. The last six lines are
-the segmentation object, the qDESS knee object, the registered-scans and
-B-spline objects, one JSON object with every
+Each path (phases 4, 5, 6, 7, 9, 10, 11, 12, 13, and each of phase 14's
+sharded paths) runs with every launch count set to 0 just before it and
+read just after (phases 10, 11 and 13 launch none). `--qdess-only` runs phase 11 alone after phase 1;
+`--scans-only` phases 12 and 13 after the build; `--train-only` phase 14
+after the build. The last seven lines are
+the segmentation object, the qDESS knee object, the registered-scans,
+B-spline and parallel/training objects, one JSON object with every
 kernel (its bound: the larger of the bytes it must move over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s) and the result object. It imports
 nothing of JAX.
@@ -191,6 +217,7 @@ nothing of JAX.
 import argparse
 import concurrent.futures
 import copy
+import functools
 import json
 import os
 import re
@@ -226,6 +253,7 @@ REG_AFFINE = np.diag([0.5, 0.6, 2.0, 1.0])
 REG_SHIFT = (4, -3, 1)  # moving = fixed rolled by this many voxels
 KNEE_SHAPE = (384, 384, 160)  # phase 8: OAI DESS matrix
 KNEE_VOLUMES = 4
+KNEE_CPU_ROWS = 48  # phase 13: rows of the knee's output that the CPU run recomputes
 WARP_AFFINE = np.diag([0.5, 0.5, 2.0, 1.0])  # bench.py:697-706
 WARP_ANGLE, WARP_SHIFT = 0.07, (1.2, -0.7, 0.4)
 
@@ -363,19 +391,32 @@ def device_ms(fn, reps, name):
     """Median duration on the card of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn`` (one such kernel a call), from
     torch.profiler's trace: the kernel alone, which the wrapper's host work
-    between two events cannot reach."""
-    from torch.profiler import ProfilerActivity, profile
+    between two events cannot reach. Each session traces ``reps`` calls and
+    throws them away (the schedule's warm-up step), then traces the
+    measured ``reps``: sessions without that step now and then lost kernel
+    events (``tools/profiler_event_probe.py``). A session that saw another
+    count than ``reps`` is measured again, up to three. Returns the ms and
+    the count each session saw."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    check(len(us) == reps, f"the profiler saw {len(us)} {name} kernels in {reps} calls")
-    return float(np.median(us)) / 1e3
+    counts = []
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _step in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        counts.append(len(us))
+        if len(us) == reps:
+            break
+    check(len(us) == reps, f"the profiler saw {counts} {name} kernels in {reps} calls")
+    return float(np.median(us)) / 1e3, counts
 
 
 def _wrappers():
@@ -513,6 +554,8 @@ def build_all():
             for name in ("dosma_io", "dosma_codecs")}
     for name, (model, nparams, _, _) in GENERIC_MODELS.items():
         program = compile_model(model, nparams)
+        jobs[f"generic_lm ({name})"] = lambda p=program: build_kernel(p)
+    for name, program in sharded_programs().items():
         jobs[f"generic_lm ({name})"] = lambda p=program: build_kernel(p)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs) + len(host)) as pool:
@@ -800,6 +843,7 @@ def small_cases(dev):
 # ----------------------------------------------------------------------
 # Phase 4: monoexponential relaxometry at full size
 # ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
 def config1_data(seed=0):
     """Bench config1 (bench.py:120-224): 512x512x64 voxels, 4 echoes at
     x = [10, 20, 30, 40], b = -1/(U*70+10), additive noise sigma 0.005.
@@ -937,6 +981,7 @@ def phase_monoexp(dt, dev, card):
 # ----------------------------------------------------------------------
 # Phases 5 and 6: the curve-fitting path at full width
 # ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
 def biexp_data(seed=0):
     """bench.py:855-863: (N, 8) noiseless two-compartment decays."""
     N = int(np.prod(FIT_SHAPE))
@@ -950,6 +995,7 @@ def biexp_data(seed=0):
             ).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def generic_data(seed=0):
     """bench.py:900-908: (N, 5) noiseless offset exponentials, and the true b."""
     N = int(np.prod(FIT_SHAPE))
@@ -1354,12 +1400,13 @@ def phase_warp(dev, card):
     gen = torch.Generator(device=dev).manual_seed(3)
     vol = torch.rand((1,) + REG_SHAPE, generator=gen, device=dev)
     bench_ms, bench_all = time_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1))
-    bench_kernel_ms = device_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1), 21, "warp")
+    bench_kernel_ms, seen = device_ms(lambda: warp_grid(vol, B, REG_SHAPE, 1), 21, "warp")
     n = int(np.prod(REG_SHAPE))
     print(f"  bench size {REG_SHAPE}, one volume, order 1: {bench_ms:.4f} ms between two "
           f"events, the wrapper's host work included (point kernel: {POINT_KERNEL_BENCH_MS} "
           f"ms) runs {[round(t, 4) for t in bench_all]}; the kernel alone {bench_kernel_ms:.4f} "
-          f"ms ({n / bench_kernel_ms / 1e3:.4g} Mpts/s; profiler, median of 21)")
+          f"ms ({n / bench_kernel_ms / 1e3:.4g} Mpts/s; profiler, median of 21; kernel events "
+          f"seen in each session {seen})")
     res["bench_ms"] = bench_ms
     res["bench_kernel_ms"] = bench_kernel_ms
     res["max_abs_err"] = worst
@@ -2016,43 +2063,12 @@ QDESS_RTOL = 1e-9  # rows and unrolled maps, card map against its host copy
 D2H_SLACK = 1 << 20  # bytes beyond 8 a masked voxel the compressed analytics may copy
 
 
-def series_headers(shape, spacing, echo_times):
-    """(1, 1, slices, echoes) headers of a sagittal multi-echo series: rows
-    along S-I, columns along A-P, slices along L-R, EchoNumbers 1.. and
-    EchoTime per echo."""
-    from dosma_tpu_torch.core.io.dicom import Dataset
-    from dosma_tpu_torch.core.io.dicom.writer import generate_uid
-
-    rows, cols, nslices = shape
-    series = generate_uid()
-    headers = np.empty((1, 1, nslices, len(echo_times)), dtype=object)
-    for e, te in enumerate(echo_times):
-        for s in range(nslices):
-            ds = Dataset()
-            ds.SOPInstanceUID = generate_uid()
-            ds.SeriesInstanceUID = series
-            ds.Modality = "MR"
-            ds.InstanceNumber = e * nslices + s + 1
-            ds.EchoNumbers = e + 1
-            ds.EchoTime = te
-            ds.Rows, ds.Columns = rows, cols
-            ds.BitsAllocated, ds.BitsStored, ds.HighBit = 16, 16, 15
-            ds.PixelRepresentation = 0
-            ds.SamplesPerPixel = 1
-            ds.PhotometricInterpretation = "MONOCHROME2"
-            ds.PixelSpacing = [spacing[0], spacing[1]]
-            ds.SliceThickness = spacing[2]
-            ds.ImagePositionPatient = [spacing[2] * s, 0.0, 0.0]
-            ds.ImageOrientationPatient = [0.0, 1.0, 0.0, 0.0, 0.0, -1.0]
-            headers[0, 0, s, e] = ds
-    return headers
-
-
 def qdess_headers(shape, physics):
     """(1, 1, slices, 2) headers of a two-echo sagittal qDESS series
-    (:func:`series_headers`) with TR, the flip angle and GE's private
-    spoiler tags (0019,10B6) / (0019,10B7) set."""
+    (``parallel/dryrun.py::series_headers``) with TR, the flip angle and
+    GE's private spoiler tags (0019,10B6) / (0019,10B7) set."""
     from dosma_tpu_torch.core.io.dicom import Tag
+    from dosma_tpu_torch.parallel.dryrun import series_headers
 
     headers = series_headers(shape, SEG_SPACING, QDESS_ECHO_TIMES)
     for ds in headers.flat:
@@ -2134,6 +2150,20 @@ def asked_d2h_bytes(fn):
     return counted[0]
 
 
+@functools.lru_cache(maxsize=None)
+def qdess_knee_series():
+    """Phase 11's two-echo knee: (pixels (384, 384, 160, 2) uint16, headers,
+    affine); made once a process (phase 14 writes it again)."""
+    from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
+
+    physics = {k: QDESS_PHYSICS[k] for k in ("tr", "alpha", "gl_area", "tg")}
+    e1 = (np.random.RandomState(4).rand(*KNEE_SHAPE) * 1000).astype(np.uint16)
+    ratio = np.random.RandomState(5).uniform(*QDESS_RATIO, KNEE_SHAPE)
+    e2 = (e1 * ratio).astype(np.uint16)
+    headers = qdess_headers(KNEE_SHAPE, physics)
+    return np.stack([e1, e2], axis=-1), headers, to_RAS_affine(list(headers[0, 0, :, 0]))
+
+
 def phase_qdess_knee(dt, dev, card, model=None):
     """Phase 11 (see the module docstring): a two-echo qDESS series of the
     OAI DESS matrix from DICOM to every knee tissue's rows on the card."""
@@ -2148,13 +2178,7 @@ def phase_qdess_knee(dt, dev, card, model=None):
         model = config4_model(he_normal_unet_params(np.random.RandomState(0), 4, FEATURES))
     physics = {k: QDESS_PHYSICS[k] for k in ("tr", "alpha", "gl_area", "tg")}
     t0 = time.perf_counter()
-    e1 = (np.random.RandomState(4).rand(*KNEE_SHAPE) * 1000).astype(np.uint16)
-    ratio = np.random.RandomState(5).uniform(*QDESS_RATIO, KNEE_SHAPE)
-    e2 = (e1 * ratio).astype(np.uint16)
-    pixels = np.stack([e1, e2], axis=-1)
-    del ratio
-    headers = qdess_headers(KNEE_SHAPE, physics)
-    affine = to_RAS_affine(list(headers[0, 0, :, 0]))
+    pixels, headers, affine = qdess_knee_series()
     print(f"phase 11 data: two echoes of {KNEE_SHAPE} uint16 (RandomState(4) x 1000, echo 2 x "
           f"U{QDESS_RATIO} from RandomState(5)), {pixels.nbytes / 1e6:.1f} MB of pixels, in "
           f"{time.perf_counter() - t0:.2f} s (host)")
@@ -2487,6 +2511,7 @@ def phase_cubequant(dt, dev, card):
     from dosma_tpu_torch.ops import interp
     from dosma_tpu_torch.ops import monoexp_pipeline, registration
     from dosma_tpu_torch.ops.warp import warp_grid
+    from dosma_tpu_torch.parallel.dryrun import series_headers
 
     shape = KNEE_SHAPE
     t0 = time.perf_counter()
@@ -2501,6 +2526,7 @@ def phase_cubequant(dt, dev, card):
           f"{pixels.nbytes / 1e6:.1f} MB of pixels, in {time.perf_counter() - t0:.2f} s (host)")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_cq_")
+    util = None
     try:
         series_dir = os.path.join(work, "series")
         t0 = time.perf_counter()
@@ -2526,7 +2552,10 @@ def phase_cubequant(dt, dev, card):
             fc.set_mask(mask, use_largest_cc=False)
             return fc
 
-        # The checked run (a process's first): each step with its launches.
+        # The checked run (a process's first): each step with its launches,
+        # the card's busy share and the peak memory over the whole path.
+        torch.cuda.reset_peak_memory_stats()
+        util = utilization_sampler().__enter__()
         t_first = time.perf_counter()
         t0 = time.perf_counter()
         scan = dt.CubeQuant.from_dicom(series_dir, to_device=True, num_workers=8)
@@ -2573,6 +2602,11 @@ def phase_cubequant(dt, dev, card):
         rows = fc.quant_rows(qv.volumetric_map, qv.qv_type)
         steps["rows_s"] = time.perf_counter() - t0
         first_s = time.perf_counter() - t_first
+        util.__exit__(None, None, None)
+        peak = torch.cuda.max_memory_allocated()
+        path_launches = {"warp_grid": launches["intraregister"]["warp_grid"]
+                         + launches["interregister"]["warp_grid"],
+                         "monoexp_lm": launches["fit"]["monoexp_lm"]}
         vm = qv.volumetric_map
         check(isinstance(vm.A, torch.Tensor) and vm.A.is_cuda and vm.shape == shape
               and bool(torch.isfinite(vm.A).all()), "the T1ρ map is not a finite card volume")
@@ -2648,27 +2682,12 @@ def phase_cubequant(dt, dev, card):
         del back, pre_inter, scan, qv, vm
         torch.cuda.empty_cache()
 
-        # Warm walls of the whole path, its busy share and peak memory.
-        def dir_to_rows():
-            s = dt.CubeQuant.from_dicom(series_dir, to_device=True, num_workers=8)
-            s.temp_path = os.path.join(work, "cq-warm")
-            s.intraregister()
-            s.interregister(target_path, arc_path)
-            f = femoral(arc_mv)
-            q = s.generate_t1_rho_map(tissue=f)
-            return f.quant_rows(q.volumetric_map, q.qv_type)
-
-        # One warm run (a median of 3 would add ~90 s to the script; the
-        # first call above is the second sample).
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        with utilization_sampler() as util:
-            wall_s, walls = median_wall(dir_to_rows, reps=1)
-        peak = torch.cuda.max_memory_allocated()
-        path_launches = expect_launches("CubeQuant", warp_grid=2, monoexp_lm=1)
-        host_read_s, _ = median_wall(lambda: dt.CubeQuant.from_dicom(series_dir, num_workers=8))
+        # No warm rerun of the path (it took ~65 s): the first call's wall,
+        # busy share, peak and launches stand for the path; one read each.
+        host_read_s, _ = median_wall(lambda: dt.CubeQuant.from_dicom(series_dir, num_workers=8),
+                                     reps=1)
         dev_read_s, _ = median_wall(lambda: dt.CubeQuant.from_dicom(series_dir, to_device=True,
-                                                                    num_workers=8))
+                                                                    num_workers=8), reps=1)
         vol = torch.rand(shape, device=dev)
         pre_ms, _ = time_ms(lambda: interp.cubic_coeffs(vol))
         del vol
@@ -2681,10 +2700,10 @@ def phase_cubequant(dt, dev, card):
         print(f"phase 12 on {card}, CubeQuant at {shape} x 4 spin locks:")
         print(f"  DICOM directory -> fc's T1ρ rows (from_dicom(to_device=True), intraregister, "
               f"interregister(target, arc), generate_t1_rho_map(tissue=fc), quant_rows): first "
-              f"call {first_s:.4f} s; warm, one run: {wall_s:.4f} s; the card busy "
-              f"{util.busy:.4f} of it (idle {1 - util.busy:.4f}; nvidia-smi utilization.gpu, "
-              f"{util.samples} samples of 200 ms); peak memory allocated {peak / 2**30:.3f} "
-              f"GiB; launches in the warm run {path_launches}")
+              f"call {first_s:.4f} s (no warm rerun); the card busy {util.busy:.4f} of it "
+              f"(idle {1 - util.busy:.4f}; nvidia-smi utilization.gpu, {util.samples} samples "
+              f"of 200 ms); peak memory allocated {peak / 2**30:.3f} GiB; launches "
+              f"{path_launches}")
         print(f"  breakdown of the first call: from_dicom(to_device=True) {read_s:.4f} s "
               f"(warm: host read {host_read_s:.4f} s, to_device {dev_read_s:.4f} s); "
               f"intraregister {steps['intraregister_s']:.4f} s ({intra_iters} Adam iterations, "
@@ -2696,7 +2715,7 @@ def phase_cubequant(dt, dev, card):
               f"warp kernel {warp_res['interregister']['ms']:.4f} ms); T1ρ fit "
               f"{steps['t1rho_fit_s'] * 1e3:.3f} ms; fc's rows {steps['rows_s'] * 1e3:.3f} ms")
         return {"shape": list(shape), "launches": {k: v for k, v in launches.items()},
-                "first_s": first_s, "wall_s": wall_s, "busy_share": util.busy,
+                "first_s": first_s, "busy_share": util.busy,
                 "idle_share": 1 - util.busy, "peak_bytes": peak,
                 "read_first_s": read_s, "host_read_s": host_read_s, "to_device_s": dev_read_s,
                 **steps, "intraregister_ms_per_iteration": intra_ms_it,
@@ -2705,6 +2724,9 @@ def phase_cubequant(dt, dev, card):
                 "fit_max_abs_err": max(fit_err, fit_err_r2), "warps": warp_res,
                 "scipy_parity": parity, "rows_max_rel": rows_rel, "apply_warp_max_abs": back_err}
     finally:
+        if util is not None and util.proc.poll() is None:
+            util.proc.kill()  # a check failed while the sampler ran
+            util.proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2901,11 +2923,10 @@ def phase_bspline(dt, dev, card):
             dt.register(fv, mv, "bspline", output_path=work, save_volumes=False)
 
         with utilization_sampler() as util:
-            wall_s, walls = median_wall(timed)
+            wall_s, walls = median_wall(timed, reps=1)
         iters = sum(cfg.level_budget(cfg.resolutions)[0])
         print(f"phase 13 on {card}: register(bspline) first call {first_s:.4f} s; warm "
-              f"(save_volumes=False), median of 3: {wall_s:.4f} s, runs "
-              f"{[round(w, 4) for w in walls]}; {iters} Adam iterations, "
+              f"(save_volumes=False), one run: {wall_s:.4f} s; {iters} Adam iterations, "
               f"{wall_s * 1e3 / iters:.4f} ms each; the card busy {util.busy:.4f} (idle "
               f"{1 - util.busy:.4f}; nvidia-smi, {util.samples} samples)")
         result = {"shape": list(shape), "first_s": first_s, "wall_s": wall_s, "walls": walls,
@@ -2954,12 +2975,22 @@ def phase_bspline(dt, dev, card):
         knee_launches = expect_launches("apply_warp(rigid + bspline)")
         check(len(warped4) == KNEE_VOLUMES and all(w.A.is_cuda and w.shape == kshape
                                                    for w in warped4), "apply_warp knee volumes")
+        # The CPU's run of the same chain on a slab of the output: the first
+        # KNEE_CPU_ROWS rows along axis 0, the same fixed-grid points (their
+        # index coordinates do not depend on the grid's extent).
+        from dosma_tpu_torch.core.registration import _load_transform_file, _stage_from_tdata
+        from dosma_tpu_torch.ops.registration import warp_volume_chain
+
+        tdata = [_load_transform_file(f) for f in files]
+        slab = (KNEE_CPU_ROWS, *kshape[1:])
         t0 = time.perf_counter()
         with dt.default_device("cpu"):
-            host = dt.apply_warp(vols[0].cpu(), transform=files)
+            host = warp_volume_chain(vols[0].A.cpu().numpy(), [_stage_from_tdata(t) for t in tdata],
+                                     np.asarray(tdata[0]["fixed_affine"]), kA, slab,
+                                     order=int(tdata[-1].get("final_interp_order", 1)))
         cpu_s = time.perf_counter() - t0
-        got = warped4[0].A
-        want = torch.as_tensor(host.A).to(dev)
+        got = warped4[0].A[:KNEE_CPU_ROWS]
+        want = torch.as_tensor(host).to(dev)
         diff = (got - want).abs()
         outside = int((diff > 1e-4 * torch.clamp(want.abs(), min=1.0)).sum())
         knee_err = float(diff.max())
@@ -2968,9 +2999,10 @@ def phase_bspline(dt, dev, card):
               f"degrees, (1, -1, 0.5) mm) + B-spline (grid {grid_shape}, U(-2, 2) mm, "
               f"RandomState(8)) transform-file chain, order {cfg.final_interp_order}: "
               f"{apply_ms:.3f} ms (CUDA events around the call), peak memory "
-              f"{peak / 2**30:.3f} GiB, launches {knee_launches}; volume 0 against the port's "
-              f"CPU run of the same chain ({cpu_s:.2f} s): max|Δ| {knee_err:.3g}, {outside} "
-              f"voxels beyond 1e-4 * max(1, |v|)")
+              f"{peak / 2**30:.3f} GiB, launches {knee_launches}; volume 0's first "
+              f"{KNEE_CPU_ROWS} rows against the port's CPU run of the same chain on that slab "
+              f"({cpu_s:.2f} s): max|Δ| {knee_err:.3g}, {outside} voxels beyond "
+              f"1e-4 * max(1, |v|)")
         check(outside == 0, f"knee apply_warp: {outside} voxels differ from the CPU run")
         result.update({"knee_apply_warp_ms": apply_ms, "knee_peak_bytes": peak,
                        "knee_max_abs_err": knee_err, "knee_cpu_s": cpu_s,
@@ -2978,6 +3010,370 @@ def phase_bspline(dt, dev, card):
         return result
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phase 14: several cards and U-Net training (one rank a card, NCCL)
+# ----------------------------------------------------------------------
+TRAIN_BATCH = 8
+TRAIN_STEPS = 5
+TRAIN_SAVE_STEP = 3
+# Adam's first steps move every leaf by about lr: at full width 1e-3 (the
+# trainer's default) drives the sigmoid head into saturation by step 2
+# (tools/rehearse_train_cpu.py at 96x96: 1.3157 -> 1.8979 and flat), 1e-4
+# falls steadily.
+TRAIN_LR = 1e-4
+TRAIN_SLICES = slice(76, 76 + TRAIN_BATCH)  # the knee's middle slices
+TRAIN_GRAD_RTOL = 1e-4  # per leaf |Δg|/|g| against float64 (or float32's own error there)
+SHARDED_SLICES = KNEE_SHAPE[2]
+SHARDED_REG_SHIFTS = (REG_SHIFT, (-3, 2, -1))
+SHARDED_REG_CFG = dict(transform="affine", metric="mse", resolutions=2, iterations=100,
+                       num_samples=4096, learning_rate=0.05)
+SHARDED_INFER_TOL = 1e-5
+
+
+def offset_exp_user(x_col, params):
+    """Phase 6's model in lm_fit's form (``model(x_col, params)``), as a
+    user hands it to ``sharded_lm_fit``."""
+    return offset_exp(x_col, *params)
+
+
+def sharded_programs():
+    """The generic kernels' programs of phase 14 (the sharded fit's user
+    model and the dry run's), built in phase 2 with the others."""
+    from dosma_tpu_torch.ops.generic_lm import compile_model
+    from dosma_tpu_torch.parallel import dryrun
+    from dosma_tpu_torch.parallel.sharding import _with_arity
+
+    return {"P3_offset_user": compile_model(_with_arity(offset_exp_user, 3), 3),
+            "P2_dryrun_mono": compile_model(_with_arity(dryrun._mono, 2), 2)}
+
+
+def knee_training_batch():
+    """Phase 10's knee (RandomState(4) x 1000), whitened, and the condyle
+    arc's labels: (images, labels) NHWC (TRAIN_BATCH, 384, 384, 1)."""
+    knee = np.random.RandomState(4).rand(*KNEE_SHAPE).astype(np.float32) * 1000
+    x = np.ascontiguousarray(knee[:, :, TRAIN_SLICES].transpose(2, 0, 1)[..., None])
+    x = (x - x.mean()) / x.std()
+    arc = condyle_arc(KNEE_SHAPE)[:, :, TRAIN_SLICES].transpose(2, 0, 1)[..., None]
+    return x.astype(np.float32), np.ascontiguousarray(arc, dtype=np.float32)
+
+
+def phase_parallel_train(dt, dev, card):
+    """Phase 14 (see the module docstring)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from dosma_tpu_torch.models.unet2d import FEATURES, UNet2D, Unet2D, cudnn_exact
+    from dosma_tpu_torch.models.weights import params_from_state_dict, state_dict_from_params
+    from dosma_tpu_torch.ops.biexp import biexp_lm
+    from dosma_tpu_torch.ops.generic_lm import generic_lm
+    from dosma_tpu_torch.ops.monoexp import monoexp_lm
+    from dosma_tpu_torch.ops.registration import RegistrationParams, register_chain_batch
+    from dosma_tpu_torch.parallel import sharding as S
+    from dosma_tpu_torch.train import SegTrainer
+    from dosma_tpu_torch.train.seg_trainer import dice_bce_loss, unet_train_forward
+
+    result = {}
+    # 14a. The dry run module at one rank a card, NCCL, in its own processes.
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dosma_tpu_torch.parallel.dryrun", "--ranks", str(n_cards),
+         "--backend", "nccl", "--timeout", "300"],
+        capture_output=True, text=True, timeout=400,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    dry_s = time.perf_counter() - t0
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    check(proc.returncode == 0 and line.startswith("dryrun_multichip OK"),
+          f"the dry run failed (exit {proc.returncode}): {line}\n{proc.stderr[-4000:]}")
+    print(f"phase 14 dry run: python -m dosma_tpu_torch.parallel.dryrun --ranks {n_cards} "
+          f"--backend nccl: {line} ({dry_s:.1f} s)")
+    result["dryrun"] = {"ranks": n_cards, "line": line, "seconds": dry_s}
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(work, 'rendezvous')}",
+                            rank=0, world_size=1)
+    try:
+        mesh = S.get_mesh()
+        check(mesh.device_mesh is not None and mesh.device == dev, f"mesh {mesh} on {dev}")
+
+        # 14b. Full-width training at batch 8, a checkpoint and its resume.
+        images, labels = knee_training_batch()
+        params = he_normal_unet_params(np.random.RandomState(0), 1, FEATURES)
+        trainer = SegTrainer(params=params, learning_rate=TRAIN_LR)
+        check(trainer.mesh.shape == (1, 1) and trainer.mesh.device_mesh is not None,
+              f"the trainer's mesh {trainer.mesh}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for step in range(1, TRAIN_STEPS + 1):
+            if step == TRAIN_SAVE_STEP + 1:
+                t0 = time.perf_counter()
+                trainer.save(work, TRAIN_SAVE_STEP)
+                save_s = time.perf_counter() - t0
+                resumed = SegTrainer(params=params, learning_rate=TRAIN_LR)
+                t0 = time.perf_counter()
+                resumed.restore(work)
+                restore_s = time.perf_counter() - t0
+            start.record()
+            losses.append(trainer.step(images, labels))
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            if step == TRAIN_SAVE_STEP + 1:
+                resumed_loss = resumed.step(images, labels)
+                same_params = all(torch.equal(resumed.params[k], p)
+                                  for k, p in trainer.params.items())
+                check(resumed_loss == losses[-1] and same_params,
+                      f"the resumed trainer's step {step}: loss {resumed_loss} vs {losses[-1]}, "
+                      f"parameters equal: {same_params}")
+                del resumed
+        peak = torch.cuda.max_memory_allocated()
+        check(np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}")
+        warm_ms = statistics.median(step_ms[1:])
+        flops = 3 * unet_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 1) * TRAIN_BATCH
+        bound_ms = flops / PEAK_F32_PER_S * 1e3
+        n_params = sum(p.numel() for p in trainer.params.values())
+        print(f"phase 14 training on {card}: SegTrainer(FEATURES, num_classes=1, "
+              f"learning_rate={TRAIN_LR}) at full width "
+              f"({n_params:,} parameters, every leaf trained), {TRAIN_BATCH} knee slices of "
+              f"{KNEE_SHAPE[0]}x{KNEE_SHAPE[1]} (phase 10's knee, whitened; the condyle arc's "
+              f"labels), {TRAIN_STEPS} steps on one batch: losses "
+              f"{[round(v, 6) for v in losses]}; step ms (CUDA events) "
+              f"{[round(v, 3) for v in step_ms]}, warm median {warm_ms:.3f} ms against a bound "
+              f"of {bound_ms:.3f} ms (3 x the forward's {flops / 3 / 1e12:.4f} TFLOP at 67 "
+              f"TFLOP/s; {bound_ms / warm_ms:.4f} of it); peak memory {peak / 2**30:.3f} GiB")
+        print(f"phase 14 checkpoint: save at step {TRAIN_SAVE_STEP} {save_s:.3f} s, restore "
+              f"into a fresh trainer {restore_s:.3f} s; step {TRAIN_SAVE_STEP + 1} in both: "
+              f"the losses and every parameter bit-equal")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # One slice's gradients on the card against float64 on the CPU, leaf by
+        # leaf; float32 on the CPU beside them, since the bottleneck's leaves
+        # sum thousands of terms of either sign and float32 itself misses
+        # 1e-4 there (tools/train_grad_accuracy.py: 7.18e-4 on the CPU,
+        # 2.47e-4 under cudnn_exact): a leaf is held to the larger of 1e-4
+        # and the CPU's float32 error on it.
+        t0 = time.perf_counter()
+        _loss, g_card = SegTrainer(params=params).loss_and_grads(images[:1], labels[:1])
+        state = dict(state_dict_from_params(params))
+        x1 = torch.from_numpy(images[:1]).permute(0, 3, 1, 2)
+        y1 = torch.from_numpy(labels[:1]).permute(0, 3, 1, 2)
+
+        def cpu_grads(dtype):
+            p = {k: v.to(dtype).requires_grad_(True) for k, v in state.items()}
+            dice_bce_loss(unet_train_forward(p, x1.to(dtype)), y1.to(dtype)).backward()
+            return params_from_state_dict({k: v.grad for k, v in p.items()})
+
+        g64, g32 = cpu_grads(torch.float64), cpu_grads(torch.float32)
+        leaves = []
+        for (path, a), (_p, b), (_q, c) in zip(leaf_items(g_card), leaf_items(g64),
+                                                leaf_items(g32), strict=True):
+            norm = max(np.linalg.norm(b), 1e-300)
+            leaves.append((float(np.linalg.norm(a.astype(np.float64) - b) / norm),
+                           float(np.linalg.norm(c.astype(np.float64) - b) / norm), path))
+        worst, worst_cpu, worst_leaf = max(leaves)
+        beyond = [(e, c, p) for e, c, p in leaves if e > max(TRAIN_GRAD_RTOL, c)]
+        past_f32 = sum(c > TRAIN_GRAD_RTOL for _e, c, _p in leaves)
+        grad_s = time.perf_counter() - t0
+        print(f"phase 14 gradients of slice {TRAIN_SLICES.start} on the card (float32, "
+              f"cudnn_exact) against float64 on the CPU, per leaf |Δg|/|g|: worst {worst:.4g} "
+              f"at {worst_leaf}, where float32 on the CPU is {worst_cpu:.4g}; {past_f32} of "
+              f"{len(leaves)} leaves have a CPU float32 error above {TRAIN_GRAD_RTOL}; bound "
+              f"per leaf max({TRAIN_GRAD_RTOL}, the CPU's float32 error) ({grad_s:.1f} s)")
+        check(not beyond, f"gradients beyond their bound: {beyond[:4]}")
+        del g64, g32, g_card
+        result["training"] = {
+            "batch": TRAIN_BATCH, "shape": [KNEE_SHAPE[0], KNEE_SHAPE[1]], "losses": losses,
+            "step_ms": step_ms, "warm_step_ms": warm_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / warm_ms, "peak_bytes": peak, "parameters": n_params,
+            "grad_worst_rel": worst, "grad_worst_leaf": worst_leaf,
+            "grad_worst_leaf_cpu_f32_rel": worst_cpu, "leaves_past_1e-4_in_f32": past_f32,
+            "save_s": save_s, "restore_s": restore_s}
+
+        # 14c. Sharded fits on phases 4-6's data: one launch each, rows
+        # bit-equal to the unsharded kernel's on the same voxels.
+        fits = {}
+        mono_y = config1_data()[0]
+        cases = {
+            "monoexp_lm": (dt.monoexponential, ECHO_TIMES, mono_y, np.array([1.0, -1 / 30]),
+                           {"max_iter": 50}, lambda y, p0, kw: monoexp_lm(ECHO_TIMES, y, p0, **kw)),
+            "biexp_lm": (dt.biexponential, BIEXP_X, biexp_data(), np.array(BIEXP_P0),
+                         {"max_iter": 100}, lambda y, p0, kw: biexp_lm(BIEXP_X, y, p0, **kw)),
+            "generic_lm": (offset_exp_user, GENERIC_X, generic_data()[0], np.array(GENERIC_P0),
+                           {"max_iter": 60},
+                           lambda y, p0, kw: generic_lm(offset_exp, GENERIC_X, y, p0, **kw)),
+        }
+        for name, (model, x, Y, p0, kw, unsharded) in cases.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            popt, r2, conv = S.sharded_lm_fit(model, x, Y, p0.astype(np.float32), **kw)
+            wall_s = time.perf_counter() - t0
+            counts = expect_launches(f"sharded_lm_fit ({name})", **{name: 1})
+            ref = unsharded(torch.from_numpy(Y).to(dev), p0.astype(np.float32), kw)
+            equal = all(np.array_equal(a, b.cpu().numpy(), equal_nan=True)
+                        for a, b in zip((popt, r2, conv), ref))
+            check(equal, f"sharded_lm_fit ({name}): rows differ from the unsharded kernel's")
+            fits[name] = {"voxels": int(Y.shape[0]), "launches": counts[name], "wall_s": wall_s,
+                          "converged": float(conv.mean())}
+            print(f"phase 14 sharded_lm_fit ({name}): {Y.shape[0]} voxels x {Y.shape[1]} on "
+                  f"{mesh}, launches {counts}, wall {wall_s:.4f} s (host in, host out), "
+                  f"converged {conv.mean():.4f}; rows bit-equal to the unsharded kernel's")
+        result["fits"] = fits
+
+        # profiling.trace around one warm sharded fit shows the kernel (in a
+        # fresh process: one with many profiler sessions behind it misses
+        # events, as phase 11 found for memcpys).
+        trace = trace_in_fresh_process(os.path.join(work, "trace"))
+        kernels = [k for k in trace["events"] if "monoexp_lm" in k[0] and k[2] == "kernel"]
+        check(len(kernels) == 1 and trace["annotated"],
+              f"the trace holds {len(kernels)} monoexp_lm kernels: {trace['events'][:8]}")
+        print(f"phase 14 profiling.trace (a fresh process, world 1): "
+              f"{trace['bytes']:,} bytes, {kernels[0][0][:48]} {kernels[0][1]} us inside the "
+              f"'sharded_lm_fit' annotation")
+        result["trace_kernel_us"] = kernels[0][1]
+
+        # 14d. Sharded registration: phase 7's phantom, two rolled volumes.
+        fixed = registration_phantom()[0]
+        movings = np.stack([np.roll(fixed, s, axis=(0, 1, 2)) for s in SHARDED_REG_SHIFTS])
+        cfgs = [RegistrationParams(**SHARDED_REG_CFG)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        Ms, warped = S.sharded_register_chain_batch(fixed, REG_AFFINE, movings, REG_AFFINE, cfgs)
+        reg_s = time.perf_counter() - t0
+        reg_counts = expect_launches("sharded_register_chain_batch", warp_grid=1)
+        Ms_ref, warped_ref, _ = register_chain_batch(fixed, REG_AFFINE, movings, REG_AFFINE, cfgs)
+        check(np.array_equal(Ms, Ms_ref) and np.array_equal(warped, warped_ref),
+              "sharded_register_chain_batch differs from register_chain_batch")
+        errs = [corner_error_vox(Ms[i, -1], shift=s) for i, s in enumerate(SHARDED_REG_SHIFTS)]
+        print(f"phase 14 sharded_register_chain_batch: {len(movings)} moving {REG_SHAPE} volumes "
+              f"({SHARDED_REG_CFG}), {reg_s:.3f} s, launches {reg_counts}; Ms and the warped "
+              f"stack equal to register_chain_batch's; corner errors {[round(e, 4) for e in errs]}"
+              f" voxel")
+        result["registration"] = {"launches": reg_counts["warp_grid"], "seconds": reg_s,
+                                  "corner_err_vox": errs}
+
+        # 14e. Sharded inference at full width on 160 slices.
+        knee = np.random.RandomState(4).rand(*KNEE_SHAPE).astype(np.float32) * 1000
+        v = np.ascontiguousarray(knee.transpose(2, 0, 1)[..., None])
+        v = (v - v.mean()) / v.std()
+        del knee
+        seg = Unet2D((KNEE_SHAPE[0], KNEE_SHAPE[1], 1), num_classes=4)
+        seg.params = he_normal_unet_params(np.random.RandomState(0), 4, FEATURES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = S.sharded_unet_inference(seg, v)
+        infer_s = time.perf_counter() - t0
+        net = UNet2D.from_params(seg.params).to(dev).eval()
+        x = torch.from_numpy(v).to(dev).permute(0, 3, 1, 2)
+        with torch.inference_mode(), cudnn_exact():
+            want = torch.cat([net(x[s:s + 16]) for s in range(0, SHARDED_SLICES, 16)])
+            want = want.permute(0, 2, 3, 1).cpu().numpy()
+        infer_err = float(np.abs(probs - want).max())
+        check(probs.shape == want.shape and infer_err <= SHARDED_INFER_TOL,
+              f"sharded_unet_inference: max|Δp| {infer_err}")
+        print(f"phase 14 sharded_unet_inference: {SHARDED_SLICES} slices of "
+              f"{KNEE_SHAPE[0]}x{KNEE_SHAPE[1]}, full width, 4 classes, {infer_s:.3f} s (host "
+              f"in, host out); max|Δp| against UNet2D's forward {infer_err:.3g} (bound "
+              f"{SHARDED_INFER_TOL})")
+        result["inference"] = {"slices": SHARDED_SLICES, "seconds": infer_s,
+                               "max_abs_err": infer_err}
+        del net, x, v, probs, want
+        torch.cuda.empty_cache()
+
+        # 14f. The sharded qDESS flow on phase 11's echoes.
+        pixels, headers, affine = qdess_knee_series()
+        series_dir = os.path.join(work, "qdess")
+        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
+                                           series_dir)
+        sharding = S.NamedSharding(mesh, S.PartitionSpec(None, None, "data"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        echoes = dt.load_to_device(series_dir, sharding=sharding, num_workers=8)
+        t2 = dt.QDess(echoes).generate_t2_map(t1=1200.0)
+        torch.cuda.synchronize()
+        qdess_s = time.perf_counter() - t0
+        vol = t2.volumetric_map.volume
+        check(isinstance(vol, DTensor) and [type(p).__name__ for p in vol.placements]
+              == ["Shard"], f"the T2 map is {type(vol).__name__}, not a sharded DTensor")
+        scan = dt.QDess.from_dicom(series_dir, to_device=True, num_workers=8)
+        ref = scan.generate_t2_map(t1=1200.0).volumetric_map
+        check(torch.equal(vol.full_tensor(), ref.volume), "the sharded T2 map differs")
+        arc = dt.MedicalVolume(condyle_arc(KNEE_SHAPE), affine)
+
+        def fc_rows(qmap):
+            fc = dt.FemoralCartilage()
+            fc.set_mask(arc, use_largest_cc=False, split_regions=True)
+            return fc.quant_rows(qmap, t2.qv_type)
+
+        t0 = time.perf_counter()
+        rows = fc_rows(t2.volumetric_map)
+        rows_s = time.perf_counter() - t0
+        rel = check_tissue_rows("fc (sharded T2)", rows, fc_rows(ref))
+        print(f"phase 14 sharded qDESS: load_to_device(sharding=Shard(2)) of {2 * KNEE_SHAPE[2]} "
+              f"files -> QDess.generate_t2_map: {qdess_s:.3f} s, a DTensor bit-equal to the "
+              f"unsharded card map; fc's {len(rows[1])} rows (the map gathered whole first, "
+              f"{int(np.prod(KNEE_SHAPE)) * 4:,} bytes) in {rows_s:.3f} s, within "
+              f"{rel:.3g} of the unsharded map's (rtol {QDESS_RTOL})")
+        result["qdess"] = {"seconds": qdess_s, "rows": len(rows[1]), "rows_s": rows_s,
+                           "rows_max_rel": rel}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
+TRACE_CODE = """
+import json, os, sys
+import numpy as np, torch
+import chip_smoke as C
+import dosma_tpu_torch as dt
+from dosma_tpu_torch.parallel.sharding import sharded_lm_fit
+from dosma_tpu_torch.utils import profiling
+
+y, p0 = C.config1_data()[0], np.array([1.0, -1 / 30], np.float32)
+sharded_lm_fit(dt.monoexponential, C.ECHO_TIMES, y, p0)
+torch.cuda.synchronize()
+with profiling.trace(sys.argv[1]) as prof:
+    with profiling.annotate("sharded_lm_fit"):
+        sharded_lm_fit(dt.monoexponential, C.ECHO_TIMES, y, p0)
+    torch.cuda.synchronize()
+events = json.load(open(prof.trace_path))["traceEvents"]
+print(json.dumps({"bytes": os.path.getsize(prof.trace_path),
+                  "annotated": any(e.get("name") == "sharded_lm_fit" for e in events),
+                  "events": [[e["name"], e.get("dur"), e.get("cat")] for e in events
+                             if e.get("cat") in ("kernel", "gpu_memcpy")
+                             or "monoexp" in str(e.get("name"))]}))
+"""
+
+
+def trace_in_fresh_process(log_dir):
+    """``profiling.trace`` around a warm ``sharded_lm_fit`` at config1 in a
+    new process: its trace's size, whether the annotation is in it, and its
+    kernel, copy and monoexp events (name, us, category)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", TRACE_CODE, log_dir], capture_output=True,
+                          text=True, timeout=300, cwd=root)
+    check(proc.returncode == 0, f"the traced fit failed: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def leaf_items(tree, path=""):
+    """(path, leaf) pairs of a nested dict / list of arrays."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_items(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_items(v, f"{path}[{i}]")
+    else:
+        yield path, np.asarray(tree)
 
 
 def main(argv=None):
@@ -2993,6 +3389,9 @@ def main(argv=None):
     parser.add_argument("--scans-only", action="store_true",
                         help="run phases 1, 2, 12 and 13 (the registered scans and the "
                              "B-spline stage); prints their objects and no result")
+    parser.add_argument("--train-only", action="store_true",
+                        help="run phases 1, 2 and 14 (the sharded entry points and U-Net "
+                             "training); prints its object and no result")
     opts = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3021,6 +3420,13 @@ def main(argv=None):
         return 0
 
     build_all()  # phase 2
+    if opts.train_only:
+        t_start = time.perf_counter()
+        parallel = phase_parallel_train(dt, dev, card)
+        print(f"phase 14: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"parallel_train": parallel}))
+        return 0
     if opts.scans_only:
         t_start = time.perf_counter()
         scans = phase_registered_scans(dt, dev, card)
@@ -3071,6 +3477,10 @@ def main(argv=None):
     t_start = time.perf_counter()
     bspline = phase_bspline(dt, dev, card)
     print(f"phase 13: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    parallel = phase_parallel_train(dt, dev, card)
+    print(f"phase 14: {time.perf_counter() - t_start:.1f} s")
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).
@@ -3100,6 +3510,11 @@ def main(argv=None):
         "cones_t2star": scans["cones"]["launches"]["t2star"]["monoexp_lm"]}
     mono["max_abs_err"] = max(mono["max_abs_err"], cq["fit_max_abs_err"],
                               scans["mapss"]["max_abs_err"], scans["cones"]["max_abs_err"])
+    # Phase 14's sharded paths: one launch a rank each.
+    for name, res in (("monoexp_lm", mono), ("biexp_lm", biexp), ("generic_lm", generic)):
+        res["sharded_launches"] = {"sharded_lm_fit": parallel["fits"][name]["launches"]}
+    warp["sharded_launches"] = {
+        "sharded_register_chain_batch": parallel["registration"]["launches"]}
 
     sources = {
         "monoexp_lm": ("dosma_tpu_torch/csrc/monoexp_lm.cu", "dosma_tpu/ops/monoexp_pallas.py:92"),
@@ -3124,6 +3539,7 @@ def main(argv=None):
     print(json.dumps({"qdess_knee": qdess_knee}))
     print(json.dumps({"registered_scans": scans}))
     print(json.dumps({"bspline": bspline}))
+    print(json.dumps({"parallel_train": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

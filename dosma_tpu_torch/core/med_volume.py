@@ -32,7 +32,13 @@ import torch
 from numpy.lib.mixins import NDArrayOperatorsMixin
 
 from dosma_tpu_torch.core import orientation as stdo
-from dosma_tpu_torch.core.device import Device, as_tensor, cpu_device, get_device
+from dosma_tpu_torch.core.device import (
+    Device,
+    as_tensor,
+    cpu_device,
+    get_default_device,
+    get_device,
+)
 from dosma_tpu_torch.defaults import SCANNER_ORIGIN_DECIMAL_PRECISION
 
 __all__ = ["MedicalVolume"]
@@ -286,6 +292,17 @@ class MedicalVolume(NDArrayOperatorsMixin):
 
     def cpu(self) -> "MedicalVolume":
         return self.to(cpu_device)
+
+    def device_put(self, device=None, sharding=None) -> "MedicalVolume":
+        """A copy placed on ``device`` or laid out by ``sharding`` (a
+        :class:`~dosma_tpu_torch.parallel.sharding.NamedSharding`: a
+        ``DTensor`` of which each rank holds its own block, copied from this
+        volume's pixels, the same on every rank). Without either, the
+        default device."""
+        if sharding is not None:
+            return self._partial_clone(volume=sharding.place(self._volume))
+        device = get_default_device() if device is None else Device(device)
+        return self._partial_clone(volume=as_tensor(self._volume, device.ptdevice))
 
     def copy_to_host_async(self) -> "MedicalVolume":
         """Start copying a card volume's pixels to the host; returns ``self``.

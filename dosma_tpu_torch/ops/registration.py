@@ -764,11 +764,13 @@ def register_chain_batch(
     stage_cfgs: Sequence[RegistrationParams],
     fixed_mask=None,
     use_mask: Optional[Sequence[bool]] = None,
+    first_index: int = 0,
 ):
     """:func:`register_chain` for a stack of moving images on one grid (the
     intra-registration case). Each image runs the chain in turn, with stage
-    seeds offset by its index; the final warps of the whole stack are one
-    kernel launch, one transform per volume.
+    seeds offset by its index (plus ``first_index``: a rank's block of a
+    sharded batch offsets by its images' global indices); the final warps of
+    the whole stack are one kernel launch, one transform per volume.
 
     Returns ``(Ms (M, S, 4, 4) cumulative per stage, warped (M, ...),
     info)``.
@@ -793,7 +795,7 @@ def register_chain_batch(
 
     Ms, Bs, losses = [], [], []
     for i in range(moving_dev.shape[0]):
-        seeds = tuple(int(cfg.seed) + i for cfg in stage_cfgs)
+        seeds = tuple(int(cfg.seed) + first_index + i for cfg in stage_cfgs)
         Ms_i, _w, _e, losses_i, B = _optimize_chain_impl(
             fixed_dev, f_aff, fmask_dev if any(use_fmask) else None,
             moving_dev[i], m_aff, None, None, init, center_dev, scales_dev, sigmas, seeds,

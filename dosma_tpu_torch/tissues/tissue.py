@@ -122,13 +122,18 @@ class Tissue(ABC):
 
     def _check_quant_map(self, quant_map: MedicalVolume, map_type: QuantitativeValueType):
         """Validate the inputs of :meth:`quant_rows` and reformat ``quant_map``
-        in place to the mask's orientation (on its device)."""
+        in place to the mask's orientation (on its device); a sharded map is
+        gathered whole first, in place."""
         if not isinstance(quant_map, MedicalVolume):
             raise TypeError("quant_map must be a MedicalVolume")
         if not isinstance(map_type, QuantitativeValueType):
             raise TypeError("map_type must be a QuantitativeValueType")
         if self.__mask__ is None:
             raise ValueError(f"Please initialize mask for {self.FULL_NAME}")
+        if hasattr(quant_map.volume, "full_tensor"):
+            # A map sharded over ranks (a DTensor) is all-gathered first, in
+            # place like the reformat: each rank then reduces the whole map.
+            quant_map.volume = quant_map.volume.full_tensor()
         quant_map.reformat(self.__mask__.orientation, inplace=True)
         # A gather at the mask's indices would read a map of another shape
         # with the wrong strides instead of failing, so the shapes are

@@ -345,3 +345,67 @@ def test_cubequant_path_on_the_card(tmp_path, card):
     assert (excess <= 0).all(), (int((excess > 0).sum()), float(excess.max()))
     np.testing.assert_allclose(qv.additional_volumes["r2"].cpu().A[box],
                                want.additional_volumes["r2"].A[box], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_lm_fit_launches_the_kernel_once(card):
+    """At a world of one rank the sharded fit is one monoexp_lm launch on
+    the card, whose rows equal the unsharded kernel's bit for bit."""
+    from dosma_tpu_torch.ops import monoexp
+    from dosma_tpu_torch.parallel.sharding import sharded_lm_fit
+
+    rs = np.random.RandomState(0)
+    x = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
+    b = -1 / (rs.rand(1001).astype(np.float32) * 70 + 10)
+    Y = np.exp(b[:, None] * x[None, :]).astype(np.float32)
+    p0 = np.array([1.0, -1 / 30], np.float32)
+    before = monoexp.monoexp_lm.launches
+    popt, r2, conv = sharded_lm_fit(dt.monoexponential, x, Y, p0, max_iter=50)
+    assert monoexp.monoexp_lm.launches == before + 1
+    ref = monoexp.monoexp_lm(x, torch.from_numpy(Y).to(card), p0, max_iter=50)
+    np.testing.assert_array_equal(popt, ref[0].cpu().numpy())
+    np.testing.assert_array_equal(r2, ref[1].cpu().numpy())
+    assert conv.mean() > 0.95
+
+
+@pytest.mark.cuda
+def test_sharded_fit_under_a_gloo_group_runs_on_the_card(card):
+    """A rank of a gloo world whose default device is the first card fits a
+    card ``Y`` and a host ``Y`` with one monoexp_lm launch each, on the
+    card, with the unsharded kernel's rows."""
+    from dosma_tpu_torch.ops import monoexp
+    from dosma_tpu_torch.parallel.dryrun import launch
+    from tests import torch_worlds
+
+    (got,) = launch(torch_worlds.card_default_fits, 1, "gloo", timeout=300)
+    x, Y, p0 = torch_worlds._mono_case()
+    want = monoexp.monoexp_lm(x, torch.from_numpy(Y).to(card), p0)[0].cpu().numpy()
+    assert got["card"][:2] == (1, "cuda:0") and got["host"][:2] == (1, "numpy"), got
+    np.testing.assert_array_equal(got["card"][2], want)
+    np.testing.assert_array_equal(got["host"][2], want)
+
+
+@pytest.mark.cuda
+def test_trainer_steps_on_the_card(card):
+    """A narrow U-Net trains on the card at a world of one rank: finite,
+    falling losses, gradients equal to the CPU's to 1e-4 of each leaf."""
+    from dosma_tpu_torch.models.unet2d import init_unet2d_params
+    from dosma_tpu_torch.models.weights import params_from_state_dict, state_dict_from_params
+    from dosma_tpu_torch.train import SegTrainer
+
+    params = params_from_state_dict(state_dict_from_params(init_unet2d_params(
+        torch.Generator().manual_seed(0), features=(8, 16, 256))))
+    rs = np.random.RandomState(0)
+    images = rs.rand(4, 32, 32, 1).astype(np.float32)
+    labels = (images > 0.5).astype(np.float32)
+    trainer = SegTrainer(params=params)
+    assert trainer.params["final.bias"].device.type == "cuda"
+    _, g_card = trainer.loss_and_grads(images, labels)
+    with dt.default_device("cpu"):
+        _, g_cpu = SegTrainer(params=params).loss_and_grads(images, labels)
+    for blk_c, blk_h in zip(g_card["down"] + g_card["up"], g_cpu["down"] + g_cpu["up"]):
+        for a, b in ((blk_c["conv1"]["w"], blk_h["conv1"]["w"]),
+                     (blk_c["bn"]["mean"], blk_h["bn"]["mean"])):
+            assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
+    losses = [trainer.step(images, labels) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -52,9 +52,14 @@ def test_import_loads_no_jax_pandas_yaml():
         "dosma_tpu_torch.models, dosma_tpu_torch.models.unet2d, "
         "dosma_tpu_torch.models.weights, dosma_tpu_torch.models.util, "
         "dosma_tpu_torch.ops.bspline, dosma_tpu_torch.scan_sequences.mri.cube_quant, "
-        "dosma_tpu_torch.scan_sequences.mri.mapss, dosma_tpu_torch.scan_sequences.mri.cones\n"
+        "dosma_tpu_torch.scan_sequences.mri.mapss, dosma_tpu_torch.scan_sequences.mri.cones, "
+        "dosma_tpu_torch.parallel, dosma_tpu_torch.parallel.sharding, "
+        "dosma_tpu_torch.parallel.dryrun, dosma_tpu_torch.train, "
+        "dosma_tpu_torch.train.seg_trainer, dosma_tpu_torch.train.checkpoint, "
+        "dosma_tpu_torch.utils.profiling\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu', 'PIL', 'h5py')))"
+        "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu', 'PIL', 'h5py', "
+        "'optax', 'orbax')))"
     )
     assert out == "[]"
 
@@ -67,7 +72,7 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         words = line.split()
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
             top = words[1].split(".")[0].rstrip(",")
-            assert top not in ("jax", "jaxlib", "dosma_tpu"), line
+            assert top not in ("jax", "jaxlib", "dosma_tpu", "optax", "orbax"), line
 
 
 def test_ops_import_and_run_without_nvcc(tmp_path):

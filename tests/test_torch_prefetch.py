@@ -5,7 +5,8 @@ both packages' readers give, uint16 widened to int32. The group parse stays
 lazy: group k+1's pixels are parsed only after group k was handed over, so
 a copy issued for group k overlaps it. The pinned, side-stream copies to a
 card run only on a card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py``
-phase 9 (at full width).
+phase 9 (at full width). With ``sharding=`` each rank of a world places its
+own block of every volume (a 2-rank gloo world here).
 """
 
 import numpy as np
@@ -71,10 +72,25 @@ def test_raises_without_a_card(tmp_path):
         dt.load_to_device(str(tmp_path))
 
 
-def test_sharding_names_the_roadmap_item(tmp_path):
-    write_dicom_series(str(tmp_path), shape=(8, 8, 2), n_echos=1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        dt.load_to_device(str(tmp_path), device="cpu", sharding=object())
+def test_sharding_places_a_series_over_two_ranks(tmp_path):
+    """``sharding=`` on a gloo world of 2 CPU processes: each rank holds its
+    block of every echo along the slices (``torch.chunk``'s split of 5), a
+    ``DTensor`` whose whole array equals the readers' volume."""
+    from dosma_tpu_torch.parallel.dryrun import launch
+    from tests import torch_worlds
+
+    write_dicom_series(str(tmp_path), shape=(12, 10, 5), n_echos=2)
+    ranks = launch(torch_worlds.place_series, 2, "gloo", (str(tmp_path),))
+    host = dt.DicomReader().load(str(tmp_path))
+    for rank, (vols, block) in enumerate(zip(ranks, (slice(0, 3), slice(3, 5)))):
+        assert len(vols) == len(host) == 2
+        for (placements, local, whole, affine, echo_time), h in zip(vols, host):
+            assert placements == [("Shard", 2)]
+            assert local.dtype == whole.dtype == np.int32  # uint16 pixels, widened
+            np.testing.assert_array_equal(whole, h.A.astype(np.int32))
+            np.testing.assert_array_equal(local, h.A[..., block].astype(np.int32))
+            np.testing.assert_array_equal(affine, h.affine)
+            assert echo_time == h.get_metadata("EchoTime")
 
 
 def test_group_parse_is_deferred(tmp_path, monkeypatch):
