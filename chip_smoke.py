@@ -8,9 +8,11 @@ Usage, from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --qdess-only  # phases 1 and 11 only
     python3 chip_smoke.py --scans-only  # phases 1, 2, 12 and 13 only
     python3 chip_smoke.py --train-only  # phases 1, 2 and 14 only
+    python3 chip_smoke.py --cli-only    # phases 1, 2 and 15 only
 
 Phases (any failure raises and exits non-zero):
-  1. require a CUDA card; print its name and power limit (nvidia-smi);
+  1. require a CUDA card; print its name and power limit (nvidia-smi) and
+     collect_env_info();
   2. build every kernel from dosma_tpu_torch/csrc/, one nvcc process per
      source, all started together: monoexp_lm.cu, biexp_lm.cu,
      warp_grid.cu and the generic LM kernel generated for each model used
@@ -132,15 +134,20 @@ Phases (any failure raises and exits non-zero):
      (categories and counts equal, statistics and unrolled maps within
      rtol 1e-9, equal NaN positions); each analytics call copies at most 8
      bytes a masked voxel + 1 MB to the host (profiler memcpy events).
-     Prints the warm walls (median of 3) of the directory -> rows path with
-     the card's busy and idle share, from_dicom, segment, generate_t2_map,
+     Prints the warm walls (one run of each step, with the card's busy
+     share over the directory -> rows run from nvidia-smi's sampled
+     utilization, not a trace; segment's first call when phase 10 warmed
+     the model, else a second call; the median of 3 of generate_t2_map and
+     largest_cc of the arc):
+     from_dicom, segment, generate_t2_map,
      largest_cc, each set_mask and each tissue's analytics, the D2H bytes,
      the peak memory, and a "qdess_knee" JSON line before the kernels line.
      No hand kernel runs on this path.
- 12. the registered scans: CubeQuant at 384x384x160 from a DICOM series
-     to femoral cartilage's T1ρ rows: bench.py's config 3 recipe
+ 12. the registered scans: CubeQuant at config 3's own 192x192x48 (phase
+     15 runs it at 384x384x160 through the command line) from a DICOM
+     series to femoral cartilage's T1ρ rows: bench.py's config 3 recipe
      (RandomState(3), spin locks 1/10/30/60 ms, T1ρ U(20, 100), a box of
-     1000 + 50 U(0, 1), spin lock i rolled by (i, -i, 0)) as 640 uint16
+     1000 + 50 U(0, 1), spin lock i rolled by (i, -i, 0)) as 192 uint16
      files; the target is spin lock 1 rolled by (3, -2, 1) and the condyle
      arc rolled the same way its mask, both NIfTI.
      CubeQuant.from_dicom(to_device=True) -> intraregister() ->
@@ -194,6 +201,31 @@ Phases (any failure raises and exits non-zero):
      load_to_device(sharding=...), a sharded T2 map bit-equal to the
      unsharded card map, femoral cartilage's rows equal to the unsharded
      map's (rtol 1e-9).
+ 15. the command line at full width, each call in process through
+     dosma_tpu_torch.cli.parse_args with the launch counts read around it
+     and its wall split into load, action and save, plus the bytes it
+     wrote: phase 11's qDESS directory with phase 10's model saved as .pt
+     weights (segment --rss, then t2, then knee; the saved masks equal
+     generate_mask(scan.calc_rss()) with largest_cc for fc and pc; the
+     masks are then replaced by the condyle arc, and each saved T2 map is
+     bit-equal to ops.qmri.qdess_t2_map of the saved echoes; each knee
+     table, read back, equals quant_rows of the card map, rtol 1e-9), and
+     phase 12's CubeQuant recipe at 384x384x160, 640 files (intraregister
+     with --device_load, which reads the series through
+     from_dicom(to_device=True)'s pinned prefetch onto the card; then
+     interregister to the
+     rolled target with the arc, t1_rho with the arc as its mask, knee):
+     exactly one warp_grid launch a registration and one monoexp_lm for
+     the map, each kernel against its plain version on the path's own
+     inputs, the rolls recovered from the transform files the CLI wrote
+     (< 0.5 voxel), the saved map equal to generate_t1_rho_map on the
+     saved registered volumes, fc's table equal to quant_rows of that map;
+     the card's busy share over the CubeQuant calls. Then the entry point
+     in three child processes at once: `python -m dosma_tpu_torch.cli
+     --help` (rc 0), the t2 call as `python -m` runs it on a copy of the
+     qDESS save directory (rc 0, its peak CUDA memory > 0), and the same
+     call with CUDA_VISIBLE_DEVICES="" (non-zero, the device error: no
+     fallback to the CPU).
 Phases 4-6 also recount the LM work: each kernel is run at max_iter = 1 ..
 max_iter on its path's data, which gives every voxel's latch iteration (its
 mean, p50, p99 and max, and the warp-divergence factor) and the bound's
@@ -204,11 +236,13 @@ the branch counts of ops/warp.py::warp_branches beside this run's, on the
 readable lines only.
 Each path (phases 4, 5, 6, 7, 9, 10, 11, 12, 13, and each of phase 14's
 sharded paths) runs with every launch count set to 0 just before it and
-read just after (phases 10, 11 and 13 launch none). `--qdess-only` runs phase 11 alone after phase 1;
+read just after (phases 10, 11 and 13 launch none), and so does each of
+phase 15's calls. `--qdess-only` runs phase 11 alone after phase 1;
 `--scans-only` phases 12 and 13 after the build; `--train-only` phase 14
-after the build. The last seven lines are
+after the build; `--cli-only` phase 15 after the build, on series it
+writes itself. The last eight lines are
 the segmentation object, the qDESS knee object, the registered-scans,
-B-spline and parallel/training objects, one JSON object with every
+B-spline, parallel/training and command-line objects, one JSON object with every
 kernel (its bound: the larger of the bytes it must move over 3.35 TB/s and
 its float32 operations over 67 TFLOP/s) and the result object. It imports
 nothing of JAX.
@@ -2164,14 +2198,30 @@ def qdess_knee_series():
     return np.stack([e1, e2], axis=-1), headers, to_RAS_affine(list(headers[0, 0, :, 0]))
 
 
-def phase_qdess_knee(dt, dev, card, model=None):
+def write_qdess_series(dt, series_dir):
+    """Phase 11's two-echo series written as DICOM to ``series_dir``; the
+    seconds it took."""
+    pixels, headers, affine = qdess_knee_series()
+    t0 = time.perf_counter()
+    dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
+                                       series_dir)
+    write_s = time.perf_counter() - t0
+    n_files = len(os.listdir(series_dir))
+    check(n_files == 2 * KNEE_SHAPE[2], f"{n_files} files written, not {2 * KNEE_SHAPE[2]}")
+    return write_s
+
+
+def phase_qdess_knee(dt, dev, card, model=None, share=None):
     """Phase 11 (see the module docstring): a two-echo qDESS series of the
-    OAI DESS matrix from DICOM to every knee tissue's rows on the card."""
+    OAI DESS matrix from DICOM to every knee tissue's rows on the card. With
+    ``share`` (a dict) the series directory is kept for phase 15, under
+    ``share["work"]``, and its path stored as ``share["qdess"]``."""
     from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
     from dosma_tpu_torch.core.orientation import SAGITTAL
     from dosma_tpu_torch.ops.qmri import qdess_t2_map
     from dosma_tpu_torch.tissues import largest_cc
 
+    warmed = model is not None  # phase 10 ran the model
     if model is None:  # phase 11 alone: the same model as phase 10's
         from dosma_tpu_torch.models.unet2d import FEATURES
 
@@ -2187,16 +2237,14 @@ def phase_qdess_knee(dt, dev, card, model=None):
         return [dt.FemoralCartilage(), dt.TibialCartilage(), dt.PatellarCartilage(),
                 dt.Meniscus()]
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_qdess_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_qdess_", dir=share and share["work"])
     try:
         series_dir = os.path.join(work, "series")
-        t0 = time.perf_counter()
-        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
-                                           series_dir)
-        write_s = time.perf_counter() - t0
-        n_files = len(os.listdir(series_dir))
-        check(n_files == 2 * KNEE_SHAPE[2], f"{n_files} files written, not {2 * KNEE_SHAPE[2]}")
-        print(f"phase 11 write: DicomWriter(num_workers=8) {n_files} files in {write_s:.3f} s")
+        write_s = write_qdess_series(dt, series_dir)
+        print(f"phase 11 write: DicomWriter(num_workers=8) {2 * KNEE_SHAPE[2]} files in "
+              f"{write_s:.3f} s")
+        if share is not None:
+            share["qdess"] = series_dir
 
         # 1. from_dicom, host and card: the same pixels and header values.
         host_scan = dt.QDess.from_dicom(series_dir, num_workers=8)
@@ -2301,7 +2349,10 @@ def phase_qdess_knee(dt, dev, card, model=None):
               f"asked for {d2h_asked} bytes; each within 8 x {n_arc:,} masked voxels + 1 MB = "
               f"{limit:,}; the map is {map_bytes:,}")
 
-        # Warm walls, each the median of 3.
+        # Warm walls: one run of each step (phase 15 times the same flow
+        # through the command line) but the median of 3 of generate_t2_map
+        # and of largest_cc of the arc; the busy share from nvidia-smi over
+        # the warm run.
         def dir_to_rows():
             s = dt.QDess.from_dicom(series_dir, to_device=True, num_workers=8)
             ts = tissues()
@@ -2316,45 +2367,49 @@ def phase_qdess_knee(dt, dev, card, model=None):
             return out
 
         reset_launches()
-        wall_s, walls = median_wall(dir_to_rows)
-        launches = expect_launches("qDESS knee")  # no hand kernel on this path
-        prof_wall_s, busy_ms, idle = device_busy_share(dir_to_rows)
         torch.cuda.reset_peak_memory_stats()
-        dir_to_rows()
-        torch.cuda.synchronize()
+        with utilization_sampler() as util:
+            wall_s, _ = median_wall(dir_to_rows, reps=1)
         peak = torch.cuda.max_memory_allocated()
-        read_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, num_workers=8))
+        launches = expect_launches("qDESS knee")  # no hand kernel on this path
+        read_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, num_workers=8), reps=1)
         load_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, to_device=True,
-                                                            num_workers=8))
+                                                            num_workers=8), reps=1)
 
-        def segment_once():
-            scan.tissues = []
-            scan.segment(model, tissues(), use_rss=True)
+        segment_s = first_segment_s
+        if not warmed:  # the first call paid the model's warm-up: time a second
 
-        segment_s, _ = median_wall(segment_once)
+            def segment_once():
+                scan.tissues = []
+                scan.segment(model, tissues(), use_rss=True)
+
+            segment_s, _ = median_wall(segment_once, reps=1)
         t2_s, _ = median_wall(lambda: scan.generate_t2_map(t1=1200.0))
         fc_mask = ref["fc"].A
-        cc_s, _ = median_wall(lambda: largest_cc(fc_mask))
+        cc_s, _ = median_wall(lambda: largest_cc(fc_mask), reps=1)
         cc_arc_s, _ = median_wall(lambda: largest_cc(arc.A))
         analytics = {}
         for t in tis:
             qv = t.quantitative_values[0]
             analytics[t.STR_ID] = median_wall(
-                lambda t=t, qv=qv: t.quant_rows(qv.volumetric_map, qv.qv_type))[0]
+                lambda t=t, qv=qv: t.quant_rows(qv.volumetric_map, qv.qv_type), reps=1)[0]
         set_mask_s = {}
         for t in tissues():
             kw = ({"use_largest_cc": False}
                   if isinstance(t, (dt.FemoralCartilage, dt.PatellarCartilage)) else {})
-            set_mask_s[t.STR_ID] = median_wall(lambda t=t, kw=kw: t.set_mask(arc, **kw))[0]
+            set_mask_s[t.STR_ID] = median_wall(lambda t=t, kw=kw: t.set_mask(arc, **kw),
+                                               reps=1)[0]
         ms = {k: round(v * 1e3, 3) for k, v in analytics.items()}
         print(f"phase 11 on {card}, {KNEE_SHAPE} x 2 echoes, config4's model at full width:")
         print(f"  DICOM directory -> every tissue's rows (from_dicom(to_device=True), segment, "
-              f"the arc masks, generate_t2_map and quant_rows for each tissue), warm, median "
-              f"of 3: {wall_s:.4f} s, runs {[round(w, 4) for w in walls]}; one more run under "
-              f"torch.profiler: wall {prof_wall_s:.4f} s, the card busy {busy_ms:.3f} ms, idle "
-              f"share {idle:.4f}; launches {launches}")
+              f"the arc masks, generate_t2_map and quant_rows for each tissue), one warm run: "
+              f"{wall_s:.4f} s, the card busy {util.busy:.4f} of it (idle {1 - util.busy:.4f}; "
+              f"nvidia-smi utilization.gpu, {util.samples} samples of 200 ms); launches "
+              f"{launches}")
         print(f"  from_dicom: host read {read_s:.4f} s, to_device=True {load_s:.4f} s")
-        print(f"  segment (RSS, generate_mask, set_mask of four tissues): {segment_s:.4f} s; "
+        print(f"  segment (RSS, generate_mask, set_mask of four tissues; "
+              f"{'its first call, phase 10 warmed the model' if warmed else 'a second call'}): "
+              f"{segment_s:.4f} s (first call {first_segment_s:.4f} s); "
               f"largest_cc of the fc mask {cc_s * 1e3:.3f} ms, of the arc {cc_arc_s * 1e3:.3f} ms")
         print(f"  generate_t2_map (card echoes): {t2_s * 1e3:.3f} ms")
         print(f"  set_mask of the arc (region split, host): "
@@ -2362,8 +2417,9 @@ def phase_qdess_knee(dt, dev, card, model=None):
         print(f"  analytics (quant_rows on the card map): {ms} ms")
         print(f"  peak memory allocated in one run {peak / 2**30:.3f} GiB")
         return {"shape": list(KNEE_SHAPE), "masked_voxels": n_arc, "launches": launches,
-                "wall_s": wall_s, "busy_ms": busy_ms, "idle_share": idle,
+                "wall_s": wall_s, "busy_share": util.busy, "idle_share": 1 - util.busy,
                 "read_s": read_s, "from_dicom_to_device_s": load_s, "segment_s": segment_s,
+                "segment_first_s": first_segment_s,
                 "t2_map_ms": t2_s * 1e3, "largest_cc_fc_ms": cc_s * 1e3,
                 "largest_cc_arc_ms": cc_arc_s * 1e3,
                 "set_mask_ms": {k: v * 1e3 for k, v in set_mask_s.items()},
@@ -2371,7 +2427,8 @@ def phase_qdess_knee(dt, dev, card, model=None):
                 "d2h_bytes": d2h, "d2h_bytes_asked": d2h_asked, "peak_bytes": peak,
                 "rows_max_rel": max(r["rel"] for r in results.values())}
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if share is None:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 # ----------------------------------------------------------------------
@@ -2504,16 +2561,14 @@ def scipy_parity_monoexp(name, x, yT, tc_map, idx, bounds):
     return rel
 
 
-def phase_cubequant(dt, dev, card):
-    """Phase 12, CubeQuant: a 4-spin-lock series of the OAI DESS matrix from
-    DICOM to femoral cartilage's T1ρ rows on the card."""
+def write_cubequant_series(dt, work, shape):
+    """Phase 12's CubeQuant series under ``work``: config 3's recipe at
+    ``shape`` with spin lock i rolled by (i, -i, 0), as uint16 DICOM; the
+    target (spin lock 1 rolled by CQ_TARGET_SHIFT) and the condyle arc
+    rolled the same way as NIfTI. Returns the paths and the data's facts."""
     from dosma_tpu_torch.core.io.dicom_io import to_RAS_affine
-    from dosma_tpu_torch.ops import interp
-    from dosma_tpu_torch.ops import monoexp_pipeline, registration
-    from dosma_tpu_torch.ops.warp import warp_grid
     from dosma_tpu_torch.parallel.dryrun import series_headers
 
-    shape = KNEE_SHAPE
     t0 = time.perf_counter()
     sigs, box = relaxometry_volumes(shape, SPIN_LOCK_TIMES)
     pixels = np.stack([np.rint(np.roll(v, (i, -i, 0), axis=(0, 1, 2)) if i else np.rint(v))
@@ -2521,31 +2576,47 @@ def phase_cubequant(dt, dev, card):
     del sigs
     headers = series_headers(shape, SCAN_SPACING, SPIN_LOCK_TIMES)
     affine = to_RAS_affine(list(headers[0, 0, :, 0]))
-    print(f"phase 12 data: config 3's recipe (bench.py:379-391, RandomState(3)) at {shape}, "
-          f"spin locks {SPIN_LOCK_TIMES} ms, spin lock i rolled by (i, -i, 0), uint16, "
-          f"{pixels.nbytes / 1e6:.1f} MB of pixels, in {time.perf_counter() - t0:.2f} s (host)")
+    make_s = time.perf_counter() - t0
+    series_dir = os.path.join(work, "series")
+    t0 = time.perf_counter()
+    dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
+                                       series_dir)
+    write_s = time.perf_counter() - t0
+    n_files = len(os.listdir(series_dir))
+    check(n_files == 4 * shape[2], f"{n_files} files written, not {4 * shape[2]}")
+    target_path = os.path.join(work, "target.nii.gz")
+    arc_path = os.path.join(work, "arc.nii.gz")
+    target = np.roll(pixels[..., 0].astype(np.float32), CQ_TARGET_SHIFT, axis=(0, 1, 2))
+    dt.MedicalVolume(target, affine).save_volume(target_path)
+    arc = np.roll(condyle_arc(shape), CQ_TARGET_SHIFT, axis=(0, 1, 2))
+    dt.MedicalVolume(arc, affine).save_volume(arc_path)
+    return {"series": series_dir, "target": target_path, "arc": arc_path, "affine": affine,
+            "box": box, "arc_mask": arc, "shape": tuple(shape), "n_files": n_files,
+            "write_s": write_s, "make_s": make_s, "pixel_bytes": pixels.nbytes}
 
+
+def phase_cubequant(dt, dev, card):
+    """Phase 12, CubeQuant: a 4-spin-lock series at config 3's own size from
+    DICOM to femoral cartilage's T1ρ rows on the card (phase 15 runs it at
+    the OAI DESS matrix through the command line)."""
+    from dosma_tpu_torch.ops import interp
+    from dosma_tpu_torch.ops import monoexp_pipeline, registration
+    from dosma_tpu_torch.ops.warp import warp_grid
+
+    shape = SCAN_SMALL_SHAPE
     work = tempfile.mkdtemp(prefix="chip_smoke_cq_")
     util = None
     try:
-        series_dir = os.path.join(work, "series")
-        t0 = time.perf_counter()
-        dt.DicomWriter(num_workers=8).save(dt.MedicalVolume(pixels, affine, headers=headers),
-                                           series_dir)
-        write_s = time.perf_counter() - t0
-        n_files = len(os.listdir(series_dir))
-        check(n_files == 4 * shape[2], f"{n_files} files written, not {4 * shape[2]}")
-        target_path = os.path.join(work, "target.nii.gz")
-        arc_path = os.path.join(work, "arc.nii.gz")
-        target = np.roll(pixels[..., 0].astype(np.float32), CQ_TARGET_SHIFT, axis=(0, 1, 2))
-        dt.MedicalVolume(target, affine).save_volume(target_path)
-        arc = np.roll(condyle_arc(shape), CQ_TARGET_SHIFT, axis=(0, 1, 2))
-        dt.MedicalVolume(arc, affine).save_volume(arc_path)
+        data = write_cubequant_series(dt, work, shape)
+        series_dir, target_path, arc_path = data["series"], data["target"], data["arc"]
+        affine, box, arc = data["affine"], data["box"], data["arc_mask"]
         arc_mv = dt.NiftiReader().load(arc_path)
-        del pixels, target
-        print(f"phase 12 write: DicomWriter(num_workers=8) {n_files} files in {write_s:.3f} s; "
-              f"target (spin lock 1 rolled by {CQ_TARGET_SHIFT}) and the condyle arc rolled "
-              f"the same way ({int(arc.sum()):,} voxels) as NIfTI")
+        print(f"phase 12 data: config 3's recipe (bench.py:379-391, RandomState(3)) at {shape}, "
+              f"spin locks {SPIN_LOCK_TIMES} ms, spin lock i rolled by (i, -i, 0), uint16, "
+              f"{data['pixel_bytes'] / 1e6:.1f} MB of pixels, in {data['make_s']:.2f} s (host)")
+        print(f"phase 12 write: DicomWriter(num_workers=8) {data['n_files']} files in "
+              f"{data['write_s']:.3f} s; target (spin lock 1 rolled by {CQ_TARGET_SHIFT}) and "
+              f"the condyle arc rolled the same way ({int(arc.sum()):,} voxels) as NIfTI")
 
         def femoral(mask):
             fc = dt.FemoralCartilage()
@@ -2830,7 +2901,7 @@ def phase_mapss_cones(dt, dev, card):
 
 
 def phase_registered_scans(dt, dev, card):
-    """Phase 12: CubeQuant at the knee's size, then MAPSS and Cones."""
+    """Phase 12: CubeQuant, MAPSS and Cones at config 3's own size."""
     out = {"cubequant": phase_cubequant(dt, dev, card)}
     torch.cuda.empty_cache()
     out.update(phase_mapss_cones(dt, dev, card))
@@ -3376,6 +3447,377 @@ def leaf_items(tree, path=""):
         yield path, np.asarray(tree)
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the command line on the card at full width
+# ----------------------------------------------------------------------
+CLI_PID = "chip-smoke"  # the knee tables' pid column
+CLI_TISSUES = ("fc", "tc", "pc", "men")
+CLI_CC_RULE = {"fc": True, "tc": False, "pc": True, "men": False}  # each set_mask's default
+
+
+class timed_methods:
+    """Adds the host seconds of every call of each ``(class, name)`` pair to
+    ``self.seconds[label]`` while the block runs; the calls go through
+    unchanged. A pair whose method is inherited is wrapped on the subclass
+    alone, so a ``super()`` call inside it is not counted twice."""
+
+    def __init__(self, pairs):
+        self.pairs, self.seconds, self.saved = pairs, {}, []
+
+    def __enter__(self):
+        for cls, name, label in self.pairs:
+            self.seconds.setdefault(label, 0.0)
+            original = getattr(cls, name)
+
+            def timed(*args, _original=original, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _original(*args, **kwargs)
+                finally:
+                    self.seconds[_label] += time.perf_counter() - t0
+            self.saved.append((cls, name, cls.__dict__.get(name)))
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, own in reversed(self.saved):
+            if own is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, own)
+
+
+def files_written_since(directory, start_ns):
+    """Bytes of the files under ``directory`` written at or after ``start_ns``."""
+    total = 0
+    for root, _, names in os.walk(directory):
+        for name in names:
+            st = os.stat(os.path.join(root, name))
+            if st.st_mtime_ns >= start_ns:
+                total += st.st_size
+    return total
+
+
+def cli_call(dt, label, argv, save_dir, work, **want):
+    """One in-process ``dosma_tpu_torch.cli.parse_args(argv)``: the launch
+    counts set to 0 just before and held to ``want`` just after; its wall
+    split into loading (the scan container and the tissues' data), saving
+    (the scan and the tissues) and the action between them; the bytes it
+    wrote under ``save_dir``."""
+    from dosma_tpu_torch import cli
+    from dosma_tpu_torch import tissues as tis
+
+    pairs = [(cli.CommandLineScanContainer, "__init__", "load"),
+             (cli.CommandLineScanContainer, "save", "save")]
+    for cls in (tis.FemoralCartilage, tis.TibialCartilage, tis.PatellarCartilage, tis.Meniscus):
+        pairs += [(cls, "load_data", "load"), (cls, "save_data", "save")]
+    with timed_methods(pairs) as tm:
+        reset_launches()
+        torch.cuda.synchronize()
+        start_ns = time.time_ns()
+        t0 = time.perf_counter()
+        cli.parse_args(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = expect_launches(f"CLI {label}", **want)
+    written = files_written_since(save_dir, start_ns)
+    rec = {"wall_s": wall, "load_s": tm.seconds["load"], "save_s": tm.seconds["save"],
+           "action_s": wall - tm.seconds["load"] - tm.seconds["save"],
+           "launches": {k: v for k, v in launches.items() if v}, "bytes_written": written}
+    shown = " ".join(a.replace(work, "$WORK") for a in argv)
+    print(f"phase 15 {label}: `{shown}`: wall {wall:.3f} s (load {rec['load_s']:.3f}, action "
+          f"{rec['action_s']:.3f}, save {rec['save_s']:.3f}), wrote {written:,} bytes, "
+          f"launches {rec['launches']}")
+    return rec
+
+
+def check_table_rows(name, xlsx, sheet, want):
+    """A knee table's rows, read back from ``data.xlsx``, against ``want``
+    (``quant_rows``' header, rows and maps): categories and counts exactly,
+    statistics within rtol 1e-9. Returns the largest relative difference."""
+    from dosma_tpu_torch.utils.io_utils import load_tables
+
+    header, rows = load_tables(xlsx)[sheet]
+    check(len(rows) == len(want[1]) > 0, f"{name}: {len(rows)} rows in {xlsx}, want "
+          f"{len(want[1])}")
+    return check_tissue_rows(name, (header, rows, []), (want[0], want[1], []))
+
+
+def phase_cli(dt, dev, card, share=None, model=None):
+    """Phase 15 (see the module docstring): the documented qDESS and
+    CubeQuant command lines, in process through ``parse_args``, then the
+    entry point itself in child processes."""
+    from dosma_tpu_torch.core.device import as_tensor
+    from dosma_tpu_torch.core.io import prefetch
+    from dosma_tpu_torch.core.orientation import SAGITTAL
+    from dosma_tpu_torch.core.quant_vals import QuantitativeValueType as QV
+    from dosma_tpu_torch.models.unet2d import FEATURES
+    from dosma_tpu_torch.models.weights import state_dict_from_params
+    from dosma_tpu_torch.msk import knee as knee_module
+    from dosma_tpu_torch.ops import monoexp_pipeline, registration
+    from dosma_tpu_torch.ops.qmri import qdess_t2_map
+    from dosma_tpu_torch.tissues import largest_cc
+
+    share = share or {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=share.get("work"))
+    previous_temp = os.environ.get("DOSMA_TEMP_DIR")
+    os.environ["DOSMA_TEMP_DIR"] = os.path.join(work, "temp")  # the scans' transform files
+    tissue_cls = {"fc": dt.FemoralCartilage, "tc": dt.TibialCartilage,
+                  "pc": dt.PatellarCartilage, "men": dt.Meniscus}
+    util = None
+    try:
+        t0 = time.perf_counter()
+        qdir = share.get("qdess")
+        if qdir is None:
+            qdir = os.path.join(work, "qdess_series")
+            write_qdess_series(dt, qdir)
+        cq = write_cubequant_series(dt, tempfile.mkdtemp(dir=work), KNEE_SHAPE)
+        _, _, q_affine = qdess_knee_series()
+        if model is None:  # phase 10's model
+            model = config4_model(he_normal_unet_params(np.random.RandomState(0), 4, FEATURES))
+        wdir = os.path.join(work, "weights")
+        os.makedirs(wdir)
+        # The name the model checks for (its .h5 name with .pt), which holds
+        # every tissue's STR_ID.
+        weights = os.path.join(wdir, "iwoai-2019-unet2d-normalized_fc-tc-pc-men_weights.pt")
+        torch.save(state_dict_from_params(model.seg_model.params), weights)
+        for t, cls in tissue_cls.items():
+            check(cls().find_weights(wdir) == weights, f"{t} does not find {weights}")
+        print(f"phase 15 data: the qDESS series ({2 * KNEE_SHAPE[2]} files, "
+              f"{'phase 11' + chr(39) + 's' if share.get('qdess') else 'written anew'}) and the "
+              f"CubeQuant "
+              f"series ({4 * KNEE_SHAPE[2]} files, its target and arc, written anew); phase 10's "
+              f"model as {os.path.getsize(weights):,} bytes of .pt weights, which find_weights "
+              f"matches for {', '.join(CLI_TISSUES)}; {time.perf_counter() - t0:.2f} s")
+
+        # The qDESS knee: segment, t2, knee (docs/api.md:96-98).
+        calls = {}
+        qsave = os.path.join(work, "qdess_out")
+        calls["qdess_segment"] = cli_call(
+            dt, "qdess segment", ["--dicom", qdir, "--save", qsave, "qdess", "--fc", "--tc",
+                                  "--pc", "--men", "segment", "--weights_dir", wdir, "--model",
+                                  "iwoai-2019-t6-normalized", "--rss"], qsave, work)
+        ref_scan = dt.QDess.from_dicom(qdir, num_workers=8)  # host, as the CLI reads it
+        ref = model.generate_mask(ref_scan.calc_rss())
+        for t in CLI_TISSUES:
+            m = ref[t]
+            want = dt.MedicalVolume(np.asarray(largest_cc(m.A) if CLI_CC_RULE[t] else m.A,
+                                               np.uint8), m.affine).reformat(SAGITTAL)
+            got = dt.NiftiReader().load(os.path.join(qsave, t, f"{t}.nii.gz")).reformat(SAGITTAL)
+            check(np.array_equal(got.A, want.A) and np.array_equal(got.affine, want.affine),
+                  f"the CLI's {t} mask is not its channel of model.generate_mask(scan.calc_rss())")
+        print("phase 15 qDESS masks: each saved mask equals its channel of "
+              "model.generate_mask(scan.calc_rss()) on the same echoes (largest_cc for fc and "
+              "pc), as phase 11 computes them")
+        # The rows run on the condyle arc, as phase 11's do: each tissue's mask file
+        # is replaced by it (random weights give no cartilage shapes).
+        arc = dt.MedicalVolume(condyle_arc(KNEE_SHAPE), q_affine)
+        for t in CLI_TISSUES:
+            arc.save_volume(os.path.join(qsave, t, f"{t}.nii.gz"))
+        calls["qdess_t2"] = cli_call(
+            dt, "qdess t2", ["--load", qsave, "qdess", "--fc", "--tc", "--pc", "--men", "t2"],
+            qsave, work)
+        echoes = ref_scan.volumes
+        e1, e2 = (as_tensor(v.A, dev) for v in echoes)
+        physics = {k: QDESS_PHYSICS[k] for k in ("tr", "alpha", "gl_area", "tg")}
+        card_maps = {}
+        for t, cls in tissue_cls.items():
+            got = dt.NiftiReader().load(os.path.join(qsave, t, "t2", "t2.nii.gz"))
+            plain = dt.MedicalVolume(qdess_t2_map(e1, e2, te=QDESS_ECHO_TIMES[0],
+                                                  t1=cls.T1_EXPECTED, **physics),
+                                     echoes[0].affine).reformat(got.orientation)
+            check(np.array_equal(got.A, np.asarray(plain.cpu().A), equal_nan=True)
+                  and np.array_equal(got.affine, plain.affine),
+                  f"{t}: the CLI's T2 map differs from ops.qmri.qdess_t2_map of the echoes")
+            card_maps[t] = plain
+        print("phase 15 qDESS T2 maps: each saved map, read back, bit-equal to "
+              "ops.qmri.qdess_t2_map of the saved echoes on the card with the header's "
+              "parameters and the tissue's T1")
+        with recorded_calls(knee_module, "handle_knee") as knee_runs:
+            calls["qdess_knee"] = cli_call(
+                dt, "knee (qDESS)", ["--load", qsave, "knee", "--fc", "--tc", "--pc", "--men",
+                                     "--t2", "--pid", CLI_PID], qsave, work)
+        rows_rel = {}
+        for tissue in knee_runs[0][2]:  # the knee's own tissues: its masks
+            t = tissue.STR_ID
+            want = tissue.quant_rows(card_maps[t].clone(), QV.T2)
+            rows_rel[t] = check_table_rows(f"knee {t}", os.path.join(qsave, t, "data.xlsx"),
+                                           "T2", want)
+        check(sorted(rows_rel) == sorted(CLI_TISSUES), f"knee ran for {sorted(rows_rel)}")
+        print(f"phase 15 knee (qDESS) rows: each tissue's table equals quant_rows of the card "
+              f"map under its mask (categories and counts exact, largest rel "
+              f"{max(rows_rel.values()):.3g}, tolerance {QDESS_RTOL:g})")
+        del e1, e2, card_maps, ref_scan, echoes, knee_runs
+        torch.cuda.empty_cache()
+
+        # CubeQuant: intraregister, interregister, t1_rho, knee.
+        csave = os.path.join(work, "cq_out")
+        torch.cuda.reset_peak_memory_stats()
+        util = utilization_sampler().__enter__()
+        t_cq = time.perf_counter()
+        with recorded_calls(registration, "warp_grid_batched") as warps:
+            # --device_load: the series is read through the pinned prefetch
+            # onto the card (from_dicom(to_device=True)), at the full width.
+            with recorded_calls(prefetch, "load_to_device") as reads:
+                calls["cubequant_intraregister"] = cli_call(
+                    dt, "cubequant intraregister", ["--dicom", cq["series"], "--save", csave,
+                                                    "--device_load", "cubequant",
+                                                    "intraregister"], csave, work, warp_grid=1)
+            check(len(reads) == 1 and len(reads[0][2]) == len(SPIN_LOCK_TIMES)
+                  and all(v.device.type == "cuda" and v.shape == KNEE_SHAPE
+                          for v in reads[0][2]),
+                  f"--device_load: {len(reads)} load_to_device calls, "
+                  f"{[(str(v.device), v.shape) for r in reads for v in r[2]]}")
+            print(f"phase 15 --device_load: one load_to_device call read "
+                  f"{len(SPIN_LOCK_TIMES)} volumes of {KNEE_SHAPE} from {4 * KNEE_SHAPE[2]} "
+                  f"files onto {reads[0][2][0].device}")
+            del reads
+            calls["cubequant_interregister"] = cli_call(
+                dt, "cubequant interregister", ["--load", csave, "cubequant", "interregister",
+                                                "--tp", cq["target"], "--tm", cq["arc"]],
+                csave, work, warp_grid=1)
+        with recorded_calls(monoexp_pipeline, "monoexp_lm") as fits:
+            calls["cubequant_t1_rho"] = cli_call(
+                dt, "cubequant t1_rho", ["--load", csave, "cubequant", "--fc", "t1_rho",
+                                         "--mask_path", cq["arc"]], csave, work, monoexp_lm=1)
+        os.makedirs(os.path.join(csave, "fc"), exist_ok=True)
+        shutil.copy(cq["arc"], os.path.join(csave, "fc", "fc.nii.gz"))  # fc's mask for knee
+        with recorded_calls(knee_module, "handle_knee") as knee_runs:
+            calls["cubequant_knee"] = cli_call(
+                dt, "knee (CubeQuant)", ["--load", csave, "knee", "--fc", "--t1_rho", "--pid",
+                                         CLI_PID], csave, work)
+        cq_wall = time.perf_counter() - t_cq
+        util.__exit__(None, None, None)
+        cq_peak = torch.cuda.max_memory_allocated()
+
+        # 1. the kernels against their plain versions on the path's own inputs.
+        check(len(warps) == 2 and len(fits) == 1, f"{len(warps)} warps, {len(fits)} fits")
+        warp_err = {}
+        for label, call in zip(("intraregister", "interregister"), warps):
+            err, equal, srcs, _, _, _ = check_recorded_warp(f"warp_grid CLI {label}", call)
+            warp_err[label] = err
+            print(f"compare warp_grid CLI {label}: NB={int(srcs.shape[0])}, max|Δ|={err:.3g} "
+                  f"bit-equal={equal}")
+            del srcs
+        del warps
+        fit_err, fit_err_r2, fit_agree = check_recorded_fit("monoexp_lm CLI T1ρ", fits[0])
+        print(f"compare monoexp_lm CLI T1ρ: kernel vs plain on every voxel: max|Δ| "
+              f"a,b={fit_err:.3g} r2={fit_err_r2:.3g}, converged agree {fit_agree:.6f}")
+        del fits
+        torch.cuda.empty_cache()
+
+        # The entry point as users type it, in child processes beside the
+        # untimed checks below: --help, the t2 call on a copy of the save
+        # directory (it writes there), the same call with no visible card.
+        env = dict(os.environ, HOME=work)
+        root = os.path.dirname(os.path.abspath(__file__))
+        qcopy = shutil.copytree(qsave, os.path.join(work, "qdess_out_copy"))
+        argv = ["dosma_tpu_torch.cli", "--load", qsave, "qdess", "--fc", "t2"]
+        argv_copy = [a if a != qsave else qcopy for a in argv]
+
+        def child(args, **kw):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *args], capture_output=True, text=True,
+                                  timeout=600, cwd=root, env={**env, **kw})
+            return proc, time.perf_counter() - t0
+
+        pool = concurrent.futures.ThreadPoolExecutor(3)
+        helped = pool.submit(child, ["-m", "dosma_tpu_torch.cli", "--help"])
+        nocard = pool.submit(child, ["-m", "dosma_tpu_torch.cli", *argv[1:]],
+                             CUDA_VISIBLE_DEVICES="")
+        ran = pool.submit(child, ["-c", "import runpy, sys, torch\n"
+                                        f"sys.argv = {argv_copy!r}\n"
+                                        "runpy.run_module('dosma_tpu_torch.cli', "
+                                        "run_name='__main__', alter_sys=True)\n"
+                                        "print('peak_cuda_bytes', "
+                                        "torch.cuda.max_memory_allocated())"])
+        pool.shutdown(wait=False)
+
+        # 2. the rolls, from the transform files the CLI wrote.
+        temp = os.path.join(work, "temp", "cubequant")
+
+        def moving_dir(stage, k):
+            found = [os.path.join(temp, ts, stage, f"moving-{k}") for ts in os.listdir(temp)
+                     if os.path.isdir(os.path.join(temp, ts, stage, f"moving-{k}"))]
+            check(len(found) == 1, f"{len(found)} {stage}/moving-{k} directories under {temp}")
+            return found[0]
+
+        intra_err = [corner_error_vox(transform_matrix(moving_dir("intraregister", k))[0],
+                                      cq["affine"], KNEE_SHAPE, (k + 1, -(k + 1), 0))
+                     for k in range(len(SPIN_LOCK_TIMES) - 1)]
+        inter_err = corner_error_vox(transform_matrix(moving_dir("interregistered", 0))[0],
+                                     cq["affine"], KNEE_SHAPE,
+                                     tuple(-v for v in CQ_TARGET_SHIFT))
+        print(f"phase 15 recovery from the CLI's transform files: intraregister "
+              f"{[round(e, 4) for e in intra_err]} voxel, interregister {inter_err:.4f} voxel "
+              f"(gate {RECOVERY_GATE})")
+        check(max(intra_err) < RECOVERY_GATE and inter_err < RECOVERY_GATE,
+              f"CLI recovery {intra_err} / {inter_err}")
+
+        # 3. the T1ρ map against the API on the same loaded volumes; 4. the rows.
+        registered = dt.CubeQuant.load(os.path.join(csave, "cubequant"))
+        api_map = registered.generate_t1_rho_map(mask_path=cq["arc"]).volumetric_map
+        got = dt.NiftiReader().load(os.path.join(csave, "fc", "t1_rho", "t1_rho.nii.gz"))
+        api_map = api_map.reformat(got.orientation)
+        check(np.array_equal(got.A, np.asarray(api_map.cpu().A), equal_nan=True)
+              and np.array_equal(got.affine, api_map.affine),
+              "the CLI's T1ρ map differs from generate_t1_rho_map on the loaded volumes")
+        (fc,) = knee_runs[0][2]
+        cq_rel = check_table_rows("knee fc T1ρ", os.path.join(csave, "fc", "data.xlsx"),
+                                  "T1_RHO", fc.quant_rows(api_map.clone(), QV.T1_RHO))
+        print(f"phase 15 CubeQuant T1ρ: the saved map, read back, equals generate_t1_rho_map "
+              f"(mask_path = the arc) on the saved registered volumes, bit for bit; the knee's "
+              f"fc rows equal quant_rows of that card map (largest rel {cq_rel:.3g})")
+        del registered, api_map
+        torch.cuda.empty_cache()
+
+        helped, help_s = helped.result()
+        check(helped.returncode == 0 and "cubequant" in helped.stdout,
+              f"cli --help: rc {helped.returncode} {helped.stderr[-2000:]}")
+        nocard, nocard_s = nocard.result()
+        check(nocard.returncode != 0 and "no CUDA device is available" in nocard.stderr,
+              f"with no visible card the CLI exited {nocard.returncode}: "
+              f"{nocard.stderr[-2000:]}")
+        ran, ran_s = ran.result()
+        found = re.search(r"peak_cuda_bytes (\d+)", ran.stdout)
+        check(ran.returncode == 0 and found and int(found.group(1)) > 0,
+              f"the CLI's t2 in a child: rc {ran.returncode}, {ran.stdout[-500:]} "
+              f"{ran.stderr[-2000:]}")
+        child_peak = int(found.group(1))
+        print(f"phase 15 entry point in child processes: `python -m dosma_tpu_torch.cli --help` "
+              f"rc 0 in {help_s:.2f} s; `--load $WORK/qdess_out_copy qdess --fc t2` (run as "
+              f"python -m runs it) rc 0 in {ran_s:.2f} s, peak CUDA memory {child_peak:,} bytes; "
+              f"`--load $WORK/qdess_out qdess --fc t2` with CUDA_VISIBLE_DEVICES='' rc "
+              f"{nocard.returncode} in {nocard_s:.2f} s, "
+              f"stderr ends: {nocard.stderr.strip().splitlines()[-1]!r}")
+
+        qdess_s = sum(c["wall_s"] for k, c in calls.items() if k.startswith("qdess"))
+        print(f"phase 15 on {card}: qDESS calls {qdess_s:.3f} s, "
+              f"CubeQuant calls {cq_wall:.3f} s with the card busy {util.busy:.4f} "
+              f"(nvidia-smi utilization.gpu, {util.samples} samples of 200 ms), peak memory "
+              f"allocated {cq_peak / 2**30:.3f} GiB")
+        return {"calls": calls, "cubequant_wall_s": cq_wall, "cubequant_busy_share":
+                util.busy, "cubequant_idle_share": 1 - util.busy, "cubequant_peak_bytes": cq_peak,
+                "launches": {"warp_grid": sum(calls[k]["launches"].get("warp_grid", 0)
+                                              for k in calls),
+                             "monoexp_lm": calls["cubequant_t1_rho"]["launches"]["monoexp_lm"]},
+                "warp_max_abs_err": max(warp_err.values()),
+                "fit_max_abs_err": max(fit_err, fit_err_r2),
+                "recovery_intra_vox": intra_err, "recovery_inter_vox": inter_err,
+                "qdess_rows_max_rel": max(rows_rel.values()), "cubequant_rows_max_rel": cq_rel,
+                "child": {"help_s": help_s, "t2_s": ran_s, "t2_peak_cuda_bytes": child_peak,
+                          "no_card_rc": nocard.returncode, "no_card_s": nocard_s}}
+    finally:
+        if util is not None and util.proc.poll() is None:
+            util.proc.kill()
+            util.proc.wait()
+        if previous_temp is None:
+            os.environ.pop("DOSMA_TEMP_DIR", None)
+        else:
+            os.environ["DOSMA_TEMP_DIR"] = previous_temp
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
@@ -3392,6 +3834,9 @@ def main(argv=None):
     parser.add_argument("--train-only", action="store_true",
                         help="run phases 1, 2 and 14 (the sharded entry points and U-Net "
                              "training); prints its object and no result")
+    parser.add_argument("--cli-only", action="store_true",
+                        help="run phases 1, 2 and 15 (the command line at full width, on "
+                             "series it writes itself); prints its object and no result")
     opts = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3413,6 +3858,7 @@ def main(argv=None):
 
     import dosma_tpu_torch as dt
 
+    print(dt.collect_env_info())
     if opts.qdess_only:
         t_start = time.perf_counter()
         print(json.dumps({"qdess_knee": phase_qdess_knee(dt, dev, card)}))
@@ -3420,6 +3866,13 @@ def main(argv=None):
         return 0
 
     build_all()  # phase 2
+    if opts.cli_only:
+        t_start = time.perf_counter()
+        cli = phase_cli(dt, dev, card)
+        print(f"phase 15: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"cli": cli}))
+        return 0
     if opts.train_only:
         t_start = time.perf_counter()
         parallel = phase_parallel_train(dt, dev, card)
@@ -3465,10 +3918,21 @@ def main(argv=None):
     seg, seg_model = phase_segmentation(dt, dev, card)
     print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
+    # Phases 11 and 12 keep their series for phase 15 under this directory.
+    share = {"work": tempfile.mkdtemp(prefix="chip_smoke_share_")}
+    try:
+        return later_phases(dt, dev, card, worst, mono, biexp, generic, reg, knee, seg,
+                            seg_model, share)
+    finally:
+        shutil.rmtree(share["work"], ignore_errors=True)
+
+
+def later_phases(dt, dev, card, worst, mono, biexp, generic, reg, knee, seg, seg_model,
+                 share):
+    """Phases 11-15 and the closing lines of a whole run."""
     t_start = time.perf_counter()
-    qdess_knee = phase_qdess_knee(dt, dev, card, model=seg_model)
+    qdess_knee = phase_qdess_knee(dt, dev, card, model=seg_model, share=share)
     print(f"phase 11: {time.perf_counter() - t_start:.1f} s")
-    del seg_model
     torch.cuda.empty_cache()
     t_start = time.perf_counter()
     scans = phase_registered_scans(dt, dev, card)
@@ -3481,6 +3945,11 @@ def main(argv=None):
     t_start = time.perf_counter()
     parallel = phase_parallel_train(dt, dev, card)
     print(f"phase 14: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    cli = phase_cli(dt, dev, card, share=share, model=seg_model)
+    print(f"phase 15: {time.perf_counter() - t_start:.1f} s")
+    del seg_model
     # warp_grid's entry: order 1 at the knee size (F.grid_sample computes the
     # same function: the library yardstick), order 3 beside it, the launches
     # of one warm register call (phase 7).
@@ -3515,6 +3984,14 @@ def main(argv=None):
         res["sharded_launches"] = {"sharded_lm_fit": parallel["fits"][name]["launches"]}
     warp["sharded_launches"] = {
         "sharded_register_chain_batch": parallel["registration"]["launches"]}
+    # Phase 15: the command line's CubeQuant calls.
+    cli_calls = cli["calls"]
+    warp["cli_launches"] = {k: cli_calls[k]["launches"]["warp_grid"]
+                            for k in ("cubequant_intraregister", "cubequant_interregister")}
+    mono["cli_launches"] = {"cubequant_t1_rho": cli_calls["cubequant_t1_rho"]["launches"]
+                            ["monoexp_lm"]}
+    warp["max_abs_err"] = max(warp["max_abs_err"], cli["warp_max_abs_err"])
+    mono["max_abs_err"] = max(mono["max_abs_err"], cli["fit_max_abs_err"])
 
     sources = {
         "monoexp_lm": ("dosma_tpu_torch/csrc/monoexp_lm.cu", "dosma_tpu/ops/monoexp_pallas.py:92"),
@@ -3540,6 +4017,7 @@ def main(argv=None):
     print(json.dumps({"registered_scans": scans}))
     print(json.dumps({"bspline": bspline}))
     print(json.dumps({"parallel_train": parallel}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

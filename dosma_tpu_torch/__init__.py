@@ -11,7 +11,9 @@ models (``models``), the knee tissues and their regional analytics
 (``Tissue``, ``FemoralCartilage``, ``TibialCartilage``,
 ``PatellarCartilage``, ``Meniscus``), the qDESS scan (``QDess``) and the
 registered scans (``CubeQuant``, ``Mapss``, ``Cones``) with the B-spline
-(FFD) registration stage.
+(FFD) registration stage, ``get_array_module`` and ``collect_env_info``.
+The command line is ``python -m dosma_tpu_torch.cli`` and the GUI
+``python -m dosma_tpu_torch.app``.
 Importing it loads torch, numpy and scipy only: no jax, pandas, yaml or
 matplotlib. Kernels and the host C++ libraries are compiled on first use.
 
@@ -28,6 +30,7 @@ from dosma_tpu_torch.core.device import (  # noqa: F401
     Device,
     cpu_device,
     default_device,
+    get_array_module,
     get_default_device,
     get_device,
     set_default_device,
@@ -101,5 +104,6 @@ from dosma_tpu_torch.tissues import (  # noqa: F401
     TibialCartilage,
     Tissue,
 )
+from dosma_tpu_torch.utils.collect_env import collect_env_info  # noqa: F401
 from dosma_tpu_torch.utils.env import debug  # noqa: F401
 from dosma_tpu_torch.utils.logger import setup_logger  # noqa: F401

@@ -25,6 +25,7 @@ __all__ = [
     "Device",
     "as_tensor",
     "cpu_device",
+    "get_array_module",
     "get_device",
     "to_device",
     "get_default_device",
@@ -80,11 +81,41 @@ class Device:
         return self._index
 
     @property
+    def id(self) -> int:
+        """Alias of :attr:`index`."""
+        return self._index
+
+    @property
+    def xp(self):
+        """The array module of data on this device: ``numpy`` for the host,
+        ``torch`` for a card."""
+        return np if self._type == "cpu" else torch
+
+    @property
     def ptdevice(self) -> torch.device:
         """The equivalent ``torch.device``."""
         if self._type == "cpu":
             return torch.device("cpu")
         return torch.device("cuda", self._index)
+
+    def to_torch(self) -> torch.device:
+        """Alias of :attr:`ptdevice`."""
+        return self.ptdevice
+
+    def at(self):
+        """Scope in which entry points compute host data on this device:
+        :func:`default_device` of this device."""
+        return default_device(self)
+
+    def __enter__(self) -> "Device":
+        """``with device:`` is ``with device.at():`` and gives the device."""
+        ctx = self.at()
+        ctx.__enter__()
+        self.__dict__.setdefault("_scopes", []).append(ctx)
+        return self
+
+    def __exit__(self, *exc):
+        return self._scopes.pop().__exit__(*exc)
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Device):
@@ -164,6 +195,14 @@ def as_tensor(array, device=None) -> torch.Tensor:
         array = array.to(device)
     wide = _WIDEN.get(array.dtype)
     return array if wide is None else array.to(wide)
+
+
+def get_array_module(array) -> Any:
+    """The array module of ``array``: ``torch`` for a tensor or a volume
+    whose pixels are a tensor, ``numpy`` for host data."""
+    if isinstance(getattr(array, "device", None), Device):  # a MedicalVolume
+        array = array.A
+    return torch if isinstance(array, torch.Tensor) else np
 
 
 def get_device(array) -> Device:

@@ -58,6 +58,10 @@ _UFUNC_TO_TORCH = {
     "invert": "bitwise_not",
     "conjugate": "conj",
 }
+# in-place operator -> the ufunc of its binary operator.
+_IOP_UFUNCS = {"__iadd__": np.add, "__isub__": np.subtract, "__imul__": np.multiply,
+               "__itruediv__": np.true_divide, "__ifloordiv__": np.floor_divide,
+               "__ipow__": np.power}
 # numpy ufunc name -> torch reduction over the given dims.
 _REDUCE_TO_TORCH = {"add": torch.sum, "multiply": torch.prod, "maximum": torch.amax,
                     "minimum": torch.amin}
@@ -342,6 +346,163 @@ class MedicalVolume(NDArrayOperatorsMixin):
         state.pop("_host_copy", None)  # a CUDA event neither pickles nor copies
         return state
 
+    def materialize(self) -> "MedicalVolume":
+        """Read a memory-mapped volume into memory (in place); returns ``self``."""
+        if self.is_mmap:
+            self._volume = np.asarray(self._volume)
+        return self
+
+    # ------------------------------------------------------------------
+    # Interop
+    # ------------------------------------------------------------------
+    def _host_pixels(self) -> np.ndarray:
+        """The pixels as a host array: a card volume's copied once, a host
+        volume's without a copy."""
+        vol = self.cpu()._volume
+        return vol.numpy() if _is_tensor(vol) else np.asarray(vol)
+
+    def to_nib(self):
+        """A ``nibabel.Nifti1Image`` of the pixels and affine (needs nibabel)."""
+        from dosma_tpu_torch.utils import env
+
+        if not env.nibabel_available():
+            raise ImportError("nibabel is not installed")
+        import nibabel as nib
+
+        return nib.Nifti1Image(self._host_pixels(), self._affine.copy())
+
+    @classmethod
+    def from_nib(cls, image, affine_precision=4, origin_precision=4) -> "MedicalVolume":
+        """A host volume from a ``nibabel`` image (needs nibabel), its
+        direction and origin rounded to the given decimals."""
+        from dosma_tpu_torch.utils import env
+
+        if not env.nibabel_available():
+            raise ImportError("nibabel is not installed")
+        affine = np.array(image.affine)
+        if affine_precision is not None:
+            affine[:3, :3] = np.round(affine[:3, :3], affine_precision)
+        if origin_precision is not None:
+            affine[:3, 3] = np.round(affine[:3, 3], origin_precision)
+        return cls(np.asarray(image.dataobj), affine)
+
+    def to_sitk(self, vdim: int = None, transpose_inplane: bool = False, headless: bool = None):
+        """A SimpleITK image of the volume (origin and direction in LPS+).
+
+        Args:
+            vdim: the axis that holds vector components.
+            transpose_inplane: swap the in-plane axes, as SimpleITK's
+                ``PermuteAxesImageFilter([1, 0, 2])`` does.
+            headless: ``True`` returns a
+                :class:`~dosma_tpu_torch.core.sitk_interop.HeadlessSitkImage`
+                and needs no SimpleITK; otherwise SimpleITK is required and
+                its absence raises ``ImportError``.
+
+        A card volume's pixels are copied to the host once.
+        """
+        from dosma_tpu_torch.core.sitk_interop import (
+            HeadlessSitkImage,
+            medvol_to_sitk_params,
+            permute_inplane_params,
+        )
+        from dosma_tpu_torch.utils import env
+
+        if not headless and not env.sitk_available():
+            raise ImportError(
+                "SimpleITK is not installed. Pass headless=True for a numpy-backed stand-in."
+            )
+        params = medvol_to_sitk_params(
+            self._host_pixels(), self.affine, self.pixel_spacing, vdim=vdim
+        )
+        if transpose_inplane:
+            params = permute_inplane_params(*params, is_vector=vdim is not None)
+        arr, origin, spacing, direction = params
+        if headless:
+            return HeadlessSitkImage(arr, origin, spacing, direction, is_vector=vdim is not None)
+
+        import SimpleITK as sitk
+
+        img = sitk.GetImageFromArray(arr, isVector=vdim is not None)
+        img.SetOrigin(origin)
+        img.SetSpacing(spacing)
+        img.SetDirection(direction)
+        return img
+
+    @classmethod
+    def from_sitk(cls, image, copy: bool = False,
+                  transpose_inplane: bool = False) -> "MedicalVolume":
+        """A host volume from a ``SimpleITK.Image`` or a
+        :class:`~dosma_tpu_torch.core.sitk_interop.HeadlessSitkImage`;
+        headers are not copied."""
+        from dosma_tpu_torch.core.sitk_interop import (
+            HeadlessSitkImage,
+            permute_inplane_params,
+            sitk_params_to_medvol,
+        )
+
+        if len(image.GetSize()) < 3:
+            raise ValueError("`image` must be 3D.")
+        is_vector = image.GetNumberOfComponentsPerPixel() > 1
+        if isinstance(image, HeadlessSitkImage):
+            arr = image.array_from_image(copy=copy)
+        else:
+            import SimpleITK as sitk
+
+            arr = sitk.GetArrayFromImage(image) if copy else sitk.GetArrayViewFromImage(image)
+
+        params = (arr, image.GetOrigin(), image.GetSpacing(), image.GetDirection())
+        if transpose_inplane:
+            params = permute_inplane_params(*params, is_vector=is_vector)
+        volume, affine = sitk_params_to_medvol(*params, is_vector=is_vector)
+        return cls(volume, affine)
+
+    def to_torch(self, requires_grad: bool = False, contiguous: bool = False,
+                 view_as_real: bool = False) -> torch.Tensor:
+        """The pixels as a tensor on their own device, without a copy: a
+        tensor volume's tensor itself, a host volume's array through
+        ``torch.from_numpy``. ``view_as_real`` gives a complex volume's real
+        view, with a trailing (real, imag) axis; ``contiguous`` and
+        ``requires_grad`` (a detached leaf) are applied after it."""
+        vol = self._volume
+        tensor = vol if _is_tensor(vol) else torch.from_numpy(vol)
+        if view_as_real and tensor.is_complex():
+            tensor = torch.view_as_real(tensor)
+        if contiguous:
+            tensor = tensor.contiguous()
+        if requires_grad:
+            tensor = tensor.detach().requires_grad_(True)
+        return tensor
+
+    @classmethod
+    def from_torch(cls, tensor: torch.Tensor, affine, headers=None,
+                   to_complex: bool = None) -> "MedicalVolume":
+        """A volume of ``tensor`` on its own device, without a copy.
+
+        ``to_complex=True`` reads a real float32 / float64 ``(..., 2)``
+        tensor as the real view of a complex one (a complex tensor is taken
+        as it is). ``affine`` may be a tensor on the CPU.
+        """
+        if isinstance(affine, torch.Tensor):
+            if affine.device.type != "cpu":
+                raise RuntimeError("Affine matrix must be on the cpu")
+            affine = affine.numpy()
+        to_complex = bool(to_complex) and not tensor.is_complex()
+        if tensor.ndim < (4 if to_complex else 3):
+            raise ValueError(
+                f"Tensor must have three spatial dimensions. Got shape {tuple(tensor.shape)}."
+            )
+        if to_complex and tensor.shape[-1] != 2:
+            raise ValueError(
+                f"tensor.shape[-1] must have shape 2 when to_complex is specified. "
+                f"Got shape {tuple(tensor.shape)}."
+            )
+        tensor = tensor.detach()
+        if to_complex:
+            if tensor.dtype not in (torch.float32, torch.float64):
+                raise ValueError(f"to_complex requires float32/float64 data, got {tensor.dtype}")
+            tensor = torch.view_as_complex(tensor.contiguous())
+        return cls(tensor, affine, headers=headers)
+
     # ------------------------------------------------------------------
     # Headers
     # ------------------------------------------------------------------
@@ -478,6 +639,10 @@ class MedicalVolume(NDArrayOperatorsMixin):
     def device(self) -> Device:
         return get_device(self._volume)
 
+    @property
+    def is_mmap(self) -> bool:
+        return isinstance(self._volume, np.memmap)
+
     # ------------------------------------------------------------------
     # Internal helpers
     # ------------------------------------------------------------------
@@ -592,6 +757,15 @@ class MedicalVolume(NDArrayOperatorsMixin):
         if _is_tensor(self._volume) and isinstance(value, np.ndarray):
             value = as_tensor(value, self._volume.device)
         self._volume[_slice] = value
+        self._written()
+
+    def _written(self):
+        """After a write of the pixels: a copy-on-write memory map becomes a
+        plain array over the same, privately written pages (``is_mmap`` turns
+        false, as in ``dosma_tpu``; the file stays as it was), and a pending
+        host copy is dropped."""
+        if self.is_mmap and self._volume.mode == "c":
+            self._volume = np.asarray(self._volume)
         self._host_copy = None
 
     def __repr__(self) -> str:
@@ -606,16 +780,28 @@ class MedicalVolume(NDArrayOperatorsMixin):
     # In-place arithmetic (numpy arrays and tensors share the dunders)
     # ------------------------------------------------------------------
     def _iops(self, other, opname: str):
+        """``self op= other``. A pair of one kind (host with host, tensor with
+        tensor, or a number) keeps numpy's or torch's own in-place rules,
+        dtype included. A mixed pair (a host volume with a tensor operand,
+        or a tensor volume with a host operand) leaves ``self`` with what
+        ``self op other`` gives: its values, dtype and device; a host
+        operand of a tensor volume is moved to the tensor's device first,
+        and a card operand of a host volume raises the binary operator's
+        device error."""
         if isinstance(other, MedicalVolume):
             self.is_same_dimensions(other, err=True)
             other = other.volume
-        if _is_tensor(self._volume) and isinstance(other, np.ndarray):
-            other = as_tensor(other)
-        result = getattr(self._volume, opname)(other)
-        if result is NotImplemented:
-            raise TypeError(f"{opname} not supported for {type(other)}")
-        self._volume = result
-        self._host_copy = None
+        on_torch = _is_tensor(self._volume)
+        if not isinstance(other, Number) and on_torch != _is_tensor(other):
+            if on_torch:
+                other = as_tensor(other, self._volume.device)
+            self._volume = _IOP_UFUNCS[opname](self, other)._volume
+        else:
+            result = getattr(self._volume, opname)(other)
+            if result is NotImplemented:
+                raise TypeError(f"{opname} not supported for {type(other)}")
+            self._volume = result
+        self._written()
         return self
 
     def __iadd__(self, other):

@@ -4,8 +4,9 @@ A tissue keeps its segmentation mask on the host, in the SAGITTAL frame,
 its registered quantitative values, and the per-region analytics of each:
 ``quant_vals[name] = (unrolled maps, DataFrame)``. Each subclass computes
 its analytics as plain rows in :meth:`Tissue.quant_rows` (no pandas), and
-``__calc_quant_vals__`` wraps them in a DataFrame; pandas is imported only
-there, and matplotlib only where a figure is drawn.
+``__calc_quant_vals__`` wraps them in a DataFrame (the ``(header, rows)``
+pair where pandas is not installed); pandas is imported only there, and
+matplotlib only where a figure is drawn.
 
 Masks, ``largest_cc`` and the region geometry stay in numpy on the host, so
 that the region bits match ``dosma_tpu`` exactly. A quantitative map stays
@@ -33,6 +34,10 @@ from dosma_tpu_torch.defaults import preferences
 from dosma_tpu_torch.utils import io_utils
 
 WEIGHTS_FILE_EXT = "h5"
+# The endings find_weights accepts: the reference's Keras files, and the
+# port's state dicts (``python -m dosma_tpu_torch.models.weights convert``),
+# which a machine without h5py reads.
+WEIGHTS_FILE_ENDINGS = (WEIGHTS_FILE_EXT, ".pt")
 
 __all__ = ["Tissue", "column_means", "largest_cc", "unrolled_maps"]
 
@@ -114,11 +119,19 @@ class Tissue(ABC):
         raise NotImplementedError  # pragma: no cover
 
     def __calc_quant_vals__(self, quant_map: MedicalVolume, map_type: QuantitativeValueType):
-        """:meth:`quant_rows` as a DataFrame, stored in ``quant_vals``."""
-        import pandas as pd
+        """:meth:`quant_rows` stored in ``quant_vals``: as a DataFrame where
+        pandas is installed, else as the ``(header, rows)`` pair, which
+        :func:`~dosma_tpu_torch.utils.io_utils.save_tables` writes the same."""
+        from dosma_tpu_torch.utils import env
 
         header, rows, maps = self.quant_rows(quant_map, map_type)
-        self.__store_quant_vals__(maps, pd.DataFrame(rows, columns=header), map_type)
+        if env.package_available("pandas"):
+            import pandas as pd
+
+            table = pd.DataFrame(rows, columns=header)
+        else:
+            table = (header, rows)
+        self.__store_quant_vals__(maps, table, map_type)
 
     def _check_quant_map(self, quant_map: MedicalVolume, map_type: QuantitativeValueType):
         """Validate the inputs of :meth:`quant_rows` and reformat ``quant_map``
@@ -181,17 +194,19 @@ class Tissue(ABC):
 
     def find_weights(self, weights_dir: str) -> str:
         """The one regular file in ``weights_dir`` whose name contains
-        :attr:`STR_ID` and ends in ``h5`` (so ``.hdf5`` does not match)."""
+        :attr:`STR_ID` and ends in ``h5`` (so ``.hdf5`` does not match) or
+        ``.pt``."""
         candidates = [
             p
             for p in glob.glob(os.path.join(weights_dir, "*"))
             if os.path.isfile(p)
             and self.STR_ID in os.path.basename(p)
-            and p.endswith(WEIGHTS_FILE_EXT)
+            and p.endswith(WEIGHTS_FILE_ENDINGS)
         ]
         if not candidates:
             raise ValueError(
-                f"No file found that contains '{self.STR_ID}' and ends in '{WEIGHTS_FILE_EXT}'"
+                f"No file found that contains '{self.STR_ID}' and ends in "
+                f"'{WEIGHTS_FILE_EXT}' or '.pt'"
             )
         if len(candidates) > 1:
             raise ValueError("There are multiple weights files, please remove duplicates")

@@ -1,13 +1,16 @@
 """Image helpers (counterpart of ``dosma_tpu/utils/img_utils.py``): slice
 downsampling, and the labelled-region figure. matplotlib is imported only
-inside :func:`write_regions`; region colours come from its Pastel1 map.
+where a figure is drawn (:func:`pyplot`); region colours come from its
+Pastel1 map.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
-__all__ = ["downsample_slice", "write_regions"]
+__all__ = ["downsample_slice", "pyplot", "write_regions"]
 
 DEFAULT_TEXT_SPACING = 0.1
 
@@ -26,14 +29,26 @@ def downsample_slice(img_array: np.ndarray, ds_factor: int, is_mask: bool = Fals
     return out
 
 
-def write_regions(file_path: str, arr: np.ndarray, plt_dict: dict = None):
-    """Save a labeled-region image with a legend (ref ``img_utils.py:52-127``)."""
+def pyplot(figure: str):
+    """matplotlib's ``pyplot`` on the Agg backend; ``None``, with a warning
+    that names ``figure``, where matplotlib is not installed. A figure only
+    shows data that is written beside it all the same."""
+    from dosma_tpu_torch.utils import env
+
+    if not env.package_available("matplotlib"):
+        warnings.warn(f"matplotlib is not installed: {figure} not drawn")
+        return None
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
-    from matplotlib.lines import Line2D
 
+    return plt
+
+
+def write_regions(file_path: str, arr: np.ndarray, plt_dict: dict = None):
+    """Save a labeled-region image with a legend (ref ``img_utils.py:52-127``);
+    without matplotlib, only the checks of ``arr`` run."""
     if len(arr.shape) != 2:
         raise ValueError("`arr` must be a 2D numpy array")
 
@@ -51,6 +66,11 @@ def write_regions(file_path: str, arr: np.ndarray, plt_dict: dict = None):
     labels = plt_dict["labels"] or list(unique_vals)
     if len(labels) != num_unique_vals:
         raise ValueError(f"len(labels) != num_unique_vals - {len(labels)} != {num_unique_vals}")
+
+    plt = pyplot(file_path)
+    if plt is None:
+        return
+    from matplotlib.lines import Line2D
 
     cmap = plt.get_cmap("Pastel1")
     cpal = [cmap(i % 9) for i in range(num_unique_vals)]

@@ -1,9 +1,10 @@
 """Host I/O helpers (counterpart of ``dosma_tpu/utils/io_utils.py``; a
 re-design of DOSMA's ``dosma/utils/io_utils.py``).
 
-``mkdirs``, pickle save/load, HDF5 save/load, and multi-sheet table export.
-``save_tables`` writes ``.xlsx`` via a minimal from-scratch writer (openpyxl
-is unavailable in this environment) — xlsx is just zipped XML.
+``mkdirs``, pickle save/load, HDF5 save/load, and multi-sheet tables.
+``save_tables`` writes ``.xlsx`` with a minimal writer of its own (xlsx is
+zipped XML; no openpyxl or pandas needed), and ``load_tables`` reads back
+what it wrote.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import pickle
 import zipfile
 from typing import Dict, Sequence
 
-__all__ = ["mkdirs", "save_pik", "load_pik", "save_h5", "load_h5", "save_tables"]
+__all__ = ["mkdirs", "save_pik", "load_pik", "save_h5", "load_h5", "save_tables",
+           "load_tables"]
 
 
 def mkdirs(dir_path: str) -> str:
@@ -80,15 +82,20 @@ def _col_name(idx: int) -> str:
 
 
 def _sheet_xml(df) -> str:
+    """A worksheet of a DataFrame or of a ``(header, rows)`` pair."""
     import numpy as np
 
+    if isinstance(df, tuple):
+        columns, records = df
+    else:
+        columns, records = df.columns, (rec for _, rec in df.iterrows())
     rows = []
     header_cells = "".join(
         f'<c r="{_col_name(j)}1" t="inlineStr"><is><t>{_xml_escape(col)}</t></is></c>'
-        for j, col in enumerate(df.columns)
+        for j, col in enumerate(columns)
     )
     rows.append(f'<row r="1">{header_cells}</row>')
-    for i, (_, rec) in enumerate(df.iterrows(), start=2):
+    for i, rec in enumerate(records, start=2):
         cells = []
         for j, val in enumerate(rec):
             ref = f"{_col_name(j)}{i}"
@@ -108,7 +115,8 @@ def _sheet_xml(df) -> str:
 
 
 def save_tables(filepath: str, data_frames: Sequence, sheet_names: Sequence[str] = None):
-    """Write DataFrames to a multi-sheet ``.xlsx`` (ref ``io_utils.py:save_tables``)."""
+    """Write DataFrames, or ``(header, rows)`` pairs, to a multi-sheet
+    ``.xlsx`` (ref ``io_utils.py:save_tables``)."""
     dirname = os.path.dirname(filepath)
     if dirname:
         os.makedirs(dirname, exist_ok=True)
@@ -166,3 +174,32 @@ def save_tables(filepath: str, data_frames: Sequence, sheet_names: Sequence[str]
         z.writestr("xl/_rels/workbook.xml.rels", wb_rels)
         for i, df in enumerate(data_frames):
             z.writestr(f"xl/worksheets/sheet{i + 1}.xml", _sheet_xml(df))
+
+
+def load_tables(filepath: str) -> Dict[str, tuple]:
+    """The sheets of an ``.xlsx`` written by :func:`save_tables`, as
+    ``{sheet name: (header, rows)}``: numbers as ``int`` or ``float`` (the
+    full precision written), ``NaN`` cells as ``float("nan")``, ``None``
+    cells as ``None``, text as ``str``."""
+    import re
+    import xml.etree.ElementTree as ET
+
+    ns = {"m": "http://schemas.openxmlformats.org/spreadsheetml/2006/main"}
+
+    def value(cell):
+        v = cell.find("m:v", ns)
+        if v is not None:
+            return int(v.text) if re.fullmatch(r"-?\d+", v.text) else float(v.text)
+        text = cell.find("m:is/m:t", ns).text or ""
+        return {"NaN": float("nan"), "None": None}.get(text, text)
+
+    with zipfile.ZipFile(filepath) as z:
+        names = [sh.get("name") for sh in
+                 ET.fromstring(z.read("xl/workbook.xml")).iter(f"{{{ns['m']}}}sheet")]
+        out = {}
+        for i, name in enumerate(names):
+            sheet = ET.fromstring(z.read(f"xl/worksheets/sheet{i + 1}.xml"))
+            rows = [[value(c) for c in row.findall("m:c", ns)]
+                    for row in sheet.iter(f"{{{ns['m']}}}row")]
+            out[name] = (rows[0], rows[1:])
+    return out

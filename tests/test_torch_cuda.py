@@ -409,3 +409,102 @@ def test_trainer_steps_on_the_card(card):
             assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
     losses = [trainer.step(images, labels) for _ in range(3)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+_IOPS = ("__iadd__", "__isub__", "__imul__", "__itruediv__", "__ifloordiv__", "__ipow__")
+_BINOPS = ("__add__", "__sub__", "__mul__", "__truediv__", "__floordiv__", "__pow__")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["host array", "host volume"])
+@pytest.mark.parametrize("iop,op", list(zip(_IOPS, _BINOPS)), ids=_IOPS)
+def test_card_volume_inplace_with_a_host_operand(iop, op, operand, card):
+    """A card volume's in-place operators take host operands: the operand
+    moves to the card, and the result equals the CPU tensor volume's binary
+    operator on the same values, on the card."""
+    rs = np.random.RandomState(3)
+    arr = rs.uniform(1, 2, (6, 5, 4)).astype(np.float32)
+    other = rs.uniform(1, 2, (6, 5, 4)).astype(np.float32)
+    mv = dt.MedicalVolume(torch.from_numpy(arr).to(card), np.eye(4))
+    host_other = other if operand == "host array" else dt.MedicalVolume(other, np.eye(4))
+    want = getattr(dt.MedicalVolume(torch.from_numpy(arr), np.eye(4)), op)(
+        dt.MedicalVolume(torch.from_numpy(other), np.eye(4)))
+    assert getattr(mv, iop)(host_other) is mv
+    assert mv.A.device == card and mv.dtype == want.dtype
+    torch.testing.assert_close(mv.A.cpu(), want.A, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_host_volume_inplace_with_a_card_operand_raises_the_device_error(card):
+    host = dt.MedicalVolume(np.ones((2, 3, 4), np.float32), np.eye(4))
+    on_card = dt.MedicalVolume(torch.ones(2, 3, 4, device=card), np.eye(4))
+    with pytest.raises(RuntimeError, match="Expected device"):
+        host + on_card
+    with pytest.raises(RuntimeError, match="Expected device"):
+        host += on_card
+    assert isinstance(host.A, np.ndarray) and float(host.A[0, 0, 0]) == 1.0
+
+
+@pytest.mark.cuda
+def test_to_torch_and_from_torch_stay_on_the_card(card):
+    t = torch.rand(4, 5, 6, device=card)
+    mv = dt.MedicalVolume.from_torch(t, torch.eye(4))
+    assert mv.A.device == card and mv.A.data_ptr() == t.data_ptr()
+    assert mv.to_torch().data_ptr() == t.data_ptr()
+    c = dt.MedicalVolume.from_torch(torch.rand(4, 5, 6, 2, device=card), np.eye(4),
+                                    to_complex=True)
+    assert c.A.device == card and c.dtype == torch.complex64
+    with pytest.raises(RuntimeError, match="cpu"):
+        dt.MedicalVolume.from_torch(t, torch.eye(4, device=card))
+    img = mv.to_sitk(headless=True)  # copied to the host once
+    np.testing.assert_array_equal(img.array_from_image(), t.cpu().numpy().transpose(2, 1, 0))
+
+
+@pytest.mark.cuda
+def test_device_at_sends_host_data_to_the_card(card):
+    host = dt.MedicalVolume(np.ones((2, 3, 4), np.float32), np.eye(4))
+    with dt.cpu_device.at():
+        with dt.Device("cuda").at() as dev:
+            assert dev == dt.Device(0) and dev.xp is torch and dev.to_torch() == card
+            assert host.device_put().A.device == card
+        assert host.device_put().A.device.type == "cpu"
+        with dt.Device("cuda:0"):
+            assert host.device_put().A.device == card
+    assert dt.get_array_module(host.device_put(card)) is torch
+
+
+@pytest.mark.cuda
+def test_viewer_copies_a_card_volume_once(card, monkeypatch):
+    from dosma_tpu_torch.gui.im_viewer import ImageViewer
+
+    copies = []
+    original = torch.Tensor.cpu
+
+    def counting(self, *a, **k):
+        if self.is_cuda:
+            copies.append(self.numel())
+        return original(self, *a, **k)
+
+    arr = np.random.RandomState(0).rand(8, 6, 5).astype(np.float32)
+    vol = dt.MedicalVolume(torch.from_numpy(arr).to(card), np.eye(4))
+    viewer = ImageViewer.__new__(ImageViewer)
+    viewer._volume = viewer._mask = viewer._volume_arr = viewer._mask_arr = None
+    viewer._index, viewer._alpha = 0, 0.3
+
+    class Slider:
+        def configure(self, **kw):
+            pass
+
+        def set(self, v):
+            pass
+
+    class Up:
+        button = "up"
+
+    viewer.slider, viewer._draw = Slider(), lambda: None
+    monkeypatch.setattr(torch.Tensor, "cpu", counting)
+    viewer.set_volume(vol)
+    for _ in range(4):
+        viewer._on_scroll(Up())
+    assert copies == [arr.size]
+    np.testing.assert_array_equal(viewer._volume_arr, arr)

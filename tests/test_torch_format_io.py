@@ -129,6 +129,7 @@ def test_reader_writer_state_dicts():
 
 def test_host_helpers_match_jax(tmp_path):
     """natsort, pickle and xlsx helpers, the logger and the debug flag."""
+    import logging
     import zipfile
 
     import pandas as pd
@@ -160,6 +161,10 @@ def test_host_helpers_match_jax(tmp_path):
     logger = dt.setup_logger(output=str(tmp_path / "log.txt"), name="dosma_tpu_torch_test")
     logger.info("hello")
     assert "hello" in (tmp_path / "log.txt").read_text()
+    # debug() sets up the package logger (its own handlers, propagate off);
+    # restore it, so later tests in this process still see its records.
+    pkg = logging.getLogger("dosma_tpu_torch")
+    saved = (pkg.propagate, pkg.level, list(pkg.handlers))
     before = dt.debug()
     try:
         assert dt.debug(True) is True
@@ -167,3 +172,10 @@ def test_host_helpers_match_jax(tmp_path):
             dt.debug("yes")
     finally:
         dt.debug(before)
+        for h in pkg.handlers:
+            if h not in saved[2]:
+                h.close()
+        pkg.propagate, pkg.level, pkg.handlers[:] = saved[0], saved[1], saved[2]
+        from dosma_tpu_torch.utils import logger as port_logger
+
+        port_logger.setup_logger.cache_clear()

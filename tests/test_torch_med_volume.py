@@ -216,3 +216,210 @@ def test_preferences_match_jax_template():
         dosma_tpu_torch.defaults.SCANNER_ORIGIN_DECIMAL_PRECISION
         == dosma_tpu.defaults.SCANNER_ORIGIN_DECIMAL_PRECISION
     )
+
+
+# ----------------------------------------------------------------------
+# In-place operators: a mixed pair takes what the binary operator gives
+# ----------------------------------------------------------------------
+_IOPS = [("__iadd__", "__add__"), ("__isub__", "__sub__"), ("__imul__", "__mul__"),
+         ("__itruediv__", "__truediv__"), ("__ifloordiv__", "__floordiv__"),
+         ("__ipow__", "__pow__")]
+_OPERANDS = ["scalar", "host array", "host volume", "tensor", "tensor volume"]
+
+
+def _operand(kind, affine):
+    arr = np.random.RandomState(9).uniform(1, 2, (6, 5, 4)).astype(np.float32)
+    return {"scalar": 1.75, "host array": arr, "tensor": torch.from_numpy(arr),
+            "host volume": dosma_tpu_torch.MedicalVolume(arr, affine),
+            "tensor volume": dosma_tpu_torch.MedicalVolume(torch.from_numpy(arr), affine)}[kind]
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["host", "tensor"])
+@pytest.mark.parametrize("kind", _OPERANDS)
+@pytest.mark.parametrize("iop,op", _IOPS, ids=[i for i, _ in _IOPS])
+def test_inplace_operator_equals_the_binary_operator(iop, op, kind, as_tensor):
+    """``mv op= x`` leaves ``mv`` (the same object) with the values, dtype and
+    kind of array that ``mv op x`` gives, for every operand kind. The JAX
+    package's host ``_iops`` ignores numpy's NotImplemented (a silent no-op
+    for a device operand), so the binary operator is the oracle here."""
+    arr = np.random.RandomState(8).uniform(1, 2, (6, 5, 4)).astype(np.float32)
+    affine = dosma_tpu.to_affine(dosma_tpu.SAGITTAL, spacing=(0.5, 0.7, 1.5))
+    mv = dosma_tpu_torch.MedicalVolume(torch.from_numpy(arr) if as_tensor else arr, affine)
+    other = _operand(kind, affine)
+    want = getattr(mv, op)(other)
+    same = mv
+    out = getattr(mv, iop)(other)
+    assert out is same
+    assert type(mv.A) is type(want.A) and mv.dtype == want.dtype
+    got = mv.A.numpy() if isinstance(mv.A, torch.Tensor) else mv.A
+    exp = want.A.numpy() if isinstance(want.A, torch.Tensor) else want.A
+    np.testing.assert_array_equal(got, exp)
+    np.testing.assert_array_equal(mv.affine, affine)
+    mixed = kind != "scalar" and as_tensor != kind.startswith("tensor")
+    if not mixed:  # a pair of one kind is updated in its own storage
+        assert isinstance(mv.A, torch.Tensor) == as_tensor
+
+
+def test_inplace_dtype_rules():
+    """A mixed pair takes the binary operator's promoted dtype; a pair of one
+    kind keeps numpy's and torch's own in-place casting."""
+    f64 = np.full((2, 3, 4), 0.5)
+    host = dosma_tpu_torch.MedicalVolume(np.ones((2, 3, 4), np.float32), np.eye(4))
+    host += torch.from_numpy(f64)
+    assert isinstance(host.A, torch.Tensor) and host.dtype == torch.float64
+    tens = dosma_tpu_torch.MedicalVolume(torch.ones(2, 3, 4), np.eye(4))
+    tens += f64
+    assert tens.dtype == torch.float64 and float(tens.A[0, 0, 0]) == 1.5
+    tens = dosma_tpu_torch.MedicalVolume(torch.ones(2, 3, 4), np.eye(4))
+    tens += dosma_tpu_torch.MedicalVolume(np.full((2, 3, 4), 3, np.uint16), np.eye(4))
+    assert tens.dtype == torch.float32 and float(tens.A[0, 0, 0]) == 4.0
+    host = dosma_tpu_torch.MedicalVolume(np.ones((2, 3, 4), np.float32), np.eye(4))
+    host += f64
+    assert host.dtype == np.float32 and isinstance(host.A, np.ndarray)
+    tens = dosma_tpu_torch.MedicalVolume(torch.ones(2, 3, 4), np.eye(4))
+    tens += torch.from_numpy(f64)
+    assert tens.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tens += dosma_tpu_torch.MedicalVolume(np.ones((2, 3, 4)), 2 * np.eye(4))
+
+
+# ----------------------------------------------------------------------
+# to_torch / from_torch, is_mmap / materialize
+# (tests/core/test_med_volume.py:290-379, :523-532)
+# ----------------------------------------------------------------------
+def test_to_torch_matches_jax_and_shares_memory():
+    arr = np.random.RandomState(0).rand(4, 5, 6).astype(np.float32)
+    mt = dosma_tpu_torch.MedicalVolume(arr.copy(), np.eye(4))
+    t = mt.to_torch()
+    want = dosma_tpu.MedicalVolume(arr, np.eye(4)).to_torch()
+    np.testing.assert_array_equal(t.numpy(), want.numpy())
+    t[0, 0, 0] = 99.0  # a host volume's array, without a copy
+    assert float(mt.A[0, 0, 0]) == 99.0
+    tv = dosma_tpu_torch.MedicalVolume(torch.from_numpy(arr.copy()), np.eye(4))
+    assert tv.to_torch() is tv.A  # a tensor volume's tensor itself
+    g = tv.to_torch(requires_grad=True, contiguous=True)
+    assert g.requires_grad and g.is_contiguous() and not tv.A.requires_grad
+
+
+def test_complex_to_torch_and_back_matches_jax():
+    rs = np.random.RandomState(0)
+    arr = (rs.rand(3, 4, 5) + 1j * rs.rand(3, 4, 5)).astype(np.complex64)
+    mj = dosma_tpu.MedicalVolume(arr, np.eye(4))
+    for as_tensor in (False, True):
+        mt = dosma_tpu_torch.MedicalVolume(torch.from_numpy(arr.copy()) if as_tensor else arr,
+                                           np.eye(4))
+        assert mt.to_torch().dtype == torch.complex64
+        tr, trj = mt.to_torch(view_as_real=True), mj.to_torch(view_as_real=True)
+        assert tr.dtype == torch.float32 and tr.shape == (3, 4, 5, 2)
+        np.testing.assert_array_equal(tr.numpy(), trj.numpy())
+        back = dosma_tpu_torch.MedicalVolume.from_torch(tr, np.eye(4), to_complex=True)
+        assert back.dtype == torch.complex64 and back.shape == (3, 4, 5)
+        np.testing.assert_array_equal(back.A.numpy(), arr)
+    arr128 = arr.astype(np.complex128)
+    back = dosma_tpu_torch.MedicalVolume.from_torch(
+        dosma_tpu_torch.MedicalVolume(arr128, np.eye(4)).to_torch(view_as_real=True),
+        np.eye(4), to_complex=True)
+    assert back.dtype == torch.complex128
+    np.testing.assert_array_equal(back.A.numpy(), arr128)
+
+
+def test_from_torch_matches_jax():
+    rs = np.random.RandomState(0)
+    t = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    mt = dosma_tpu_torch.MedicalVolume.from_torch(t, torch.eye(4))
+    mj = dosma_tpu.MedicalVolume.from_torch(t, torch.eye(4))
+    assert mt.A.data_ptr() == t.data_ptr()  # on its own device, without a copy
+    np.testing.assert_array_equal(mt.A.numpy(), np.asarray(mj.A))
+    np.testing.assert_array_equal(mt.affine, mj.affine)
+    real_view = torch.tensor(rs.rand(3, 4, 5, 2).astype(np.float32))
+    ct = dosma_tpu_torch.MedicalVolume.from_torch(real_view, np.eye(4), to_complex=True)
+    cj = dosma_tpu.MedicalVolume.from_torch(real_view, np.eye(4), to_complex=True)
+    np.testing.assert_array_equal(ct.A.numpy(), np.asarray(cj.A))
+    passthrough = torch.complex(torch.ones(2, 3, 4), torch.zeros(2, 3, 4))
+    cp = dosma_tpu_torch.MedicalVolume.from_torch(passthrough, np.eye(4), to_complex=True)
+    assert cp.dtype == torch.complex64 and cp.shape == (2, 3, 4)
+    for bad, kw in ((torch.ones(3, 4), {}), (torch.ones(3, 4, 5), {"to_complex": True}),
+                    (torch.ones(3, 4, 5, 3), {"to_complex": True}),
+                    (torch.ones(3, 4, 5, 2, dtype=torch.int32), {"to_complex": True})):
+        with pytest.raises(ValueError):
+            dosma_tpu_torch.MedicalVolume.from_torch(bad, np.eye(4), **kw)
+    with pytest.raises(RuntimeError, match="cpu"):
+        dosma_tpu_torch.MedicalVolume.from_torch(t, torch.eye(4, device="meta"))
+    full = dosma_tpu_torch.MedicalVolume(rs.rand(4, 5, 6), np.eye(4))
+    again = dosma_tpu_torch.MedicalVolume.from_torch(full.to_torch(), full.affine)
+    np.testing.assert_array_equal(again.A.numpy(), full.A)
+
+
+def test_mmap_nifti_copy_on_write(tmp_path):
+    """A write to a copy-on-write memory map (an item, an in-place operator)
+    leaves the file as it was and ``is_mmap`` false, as ``dosma_tpu`` does."""
+    from dosma_tpu.core.io.nifti_io import NiftiReader as JNiftiReader
+    from dosma_tpu_torch.core.io.nifti_io import NiftiReader, NiftiWriter
+
+    arr = np.random.RandomState(0).rand(6, 7, 8).astype(np.float32)
+    path = str(tmp_path / "v.nii")  # uncompressed: memory-mappable
+    NiftiWriter().save(dosma_tpu_torch.MedicalVolume(arr, np.eye(4)), path)
+    for write in (lambda v: v.__setitem__((slice(0, 1),) * 3, 5.0), lambda v: v.__iadd__(1.0)):
+        mv, mj = NiftiReader().load(path, mmap=True), JNiftiReader().load(path, mmap=True)
+        assert mv.is_mmap and mj.is_mmap
+        write(mv)
+        write(mj)
+        assert mv.is_mmap == mj.is_mmap is False
+        np.testing.assert_array_equal(mv.A, np.asarray(mj.A))
+        assert float(NiftiReader().load(path).A[0, 0, 0]) == arr[0, 0, 0]  # the file kept
+    np.testing.assert_array_equal(mv.A, arr + np.float32(1.0))
+
+
+def test_mmap_numpy_materialize(tmp_path):
+    path = str(tmp_path / "arr.npy")
+    np.save(path, np.random.RandomState(0).rand(4, 5, 6))
+    mv = dosma_tpu_torch.MedicalVolume(np.load(path, mmap_mode="r"), np.eye(4))
+    mj = dosma_tpu.MedicalVolume(np.load(path, mmap_mode="r"), np.eye(4))
+    assert mv.is_mmap and mj.is_mmap
+    assert mv.materialize() is mv and not mv.is_mmap
+    np.testing.assert_array_equal(mv.A, np.asarray(mj.materialize().A))
+    assert not dosma_tpu_torch.MedicalVolume(torch.zeros(2, 2, 2), np.eye(4)).is_mmap
+
+
+# ----------------------------------------------------------------------
+# Device (tests/core/test_device.py:12-85)
+# ----------------------------------------------------------------------
+def test_device_at_and_with_set_the_default_device():
+    from dosma_tpu_torch.core.device import cpu_device, get_default_device, set_default_device
+
+    set_default_device(None)  # the first card; this machine may have none
+    try:
+        with cpu_device.at() as dev:
+            assert dev == cpu_device and get_default_device() == cpu_device
+            mt = dosma_tpu_torch.MedicalVolume(np.ones((2, 2, 2)), np.eye(4)).device_put()
+            assert mt.A.device.type == "cpu"
+        target = Device("cpu")
+        with target as dev:
+            assert dev is target and get_default_device() == cpu_device
+            with Device(-1):
+                assert get_default_device() == cpu_device
+            assert get_default_device() == cpu_device
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError):
+                get_default_device()
+    finally:
+        set_default_device("cpu")
+
+
+def test_device_torch_interop_id_and_xp():
+    from dosma_tpu_torch.core.device import cpu_device, get_array_module
+
+    assert Device(torch.device("cpu")) == cpu_device == Device(torch.device("cpu", 0))
+    assert cpu_device == torch.device("cpu") and cpu_device == torch.device("cpu", 0)
+    assert cpu_device.ptdevice == torch.device("cpu") == cpu_device.to_torch()
+    assert Device(cpu_device.ptdevice) == cpu_device
+    assert cpu_device.id == cpu_device.index == -1 == dosma_tpu.cpu_device.id
+    assert cpu_device.xp is np
+    with pytest.raises((ValueError, RuntimeError)):
+        Device("xla")
+    arr = np.zeros((2, 2, 2))
+    assert get_array_module(arr) is np is dosma_tpu.get_array_module(arr)
+    assert get_array_module(torch.zeros(2)) is torch
+    assert get_array_module(dosma_tpu_torch.MedicalVolume(arr, np.eye(4))) is np
+    assert get_array_module(dosma_tpu_torch.MedicalVolume(torch.zeros(2, 2, 2), np.eye(4))) is torch
+    assert dosma_tpu_torch.get_array_module is get_array_module

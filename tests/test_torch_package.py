@@ -56,7 +56,9 @@ def test_import_loads_no_jax_pandas_yaml():
         "dosma_tpu_torch.parallel, dosma_tpu_torch.parallel.sharding, "
         "dosma_tpu_torch.parallel.dryrun, dosma_tpu_torch.train, "
         "dosma_tpu_torch.train.seg_trainer, dosma_tpu_torch.train.checkpoint, "
-        "dosma_tpu_torch.utils.profiling\n"
+        "dosma_tpu_torch.utils.profiling, dosma_tpu_torch.cli, dosma_tpu_torch.app, "
+        "dosma_tpu_torch.gui.ims, dosma_tpu_torch.utils.collect_env, "
+        "dosma_tpu_torch.core.sitk_interop\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pandas', 'yaml', 'matplotlib', 'dosma_tpu', 'PIL', 'h5py', "
         "'optax', 'orbax')))"
@@ -134,8 +136,7 @@ def test_exports_the_io_and_map_names(name):
 
 
 def test_names_still_missing_against_the_jax_package():
-    """Only get_array_module and collect_env_info are left; the registered
-    scans are ported."""
+    """None is left: the port has every public name of ``dosma_tpu``."""
     import re
 
     import dosma_tpu_torch
@@ -146,6 +147,56 @@ def test_names_still_missing_against_the_jax_package():
              "MedicalVolume", "AXIAL", "CORONAL", "SAGITTAL", "to_affine", "numpy_routines",
              "preferences", "debug", "setup_logger", "quant_vals"}
     missing = {n for n in lazy | eager if not hasattr(dosma_tpu_torch, n)}
-    assert missing == {"get_array_module", "collect_env_info"}
-    for name in ("CubeQuant", "Mapss", "Cones"):
+    assert missing == set()
+    for name in ("CubeQuant", "Mapss", "Cones", "get_array_module", "collect_env_info"):
         assert getattr(dosma_tpu_torch, name).__module__.startswith("dosma_tpu_torch.")
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """Every module of ``dosma_tpu`` has one in the port, but the four
+    Pallas kernels, which are ported as CUDA kernels (``csrc/``)."""
+    jax_pkg = _REPO / "dosma_tpu"
+    mods = {str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")}
+    missing = sorted(m for m in mods if not (_PKG / m).is_file())
+    assert missing == ["ops/biexp_pallas.py", "ops/generic_lm_pallas.py",
+                       "ops/monoexp_pallas.py", "ops/warp_pallas.py"]
+
+
+def test_cli_gui_and_env_report_need_no_optional_package():
+    """The machine with the card has no matplotlib, pandas, yaml or h5py:
+    the command line, the GUI modules and the environment report import and
+    run with each of them made unimportable."""
+    out = _run(
+        "import sys\n"
+        "for m in ('matplotlib', 'pandas', 'yaml', 'h5py', 'jax', 'dosma_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import dosma_tpu_torch.cli, dosma_tpu_torch.app, dosma_tpu_torch.gui.ims, "
+        "dosma_tpu_torch.gui.im_viewer, dosma_tpu_torch.gui.preferences_viewer, "
+        "dosma_tpu_torch.gui.dosma_gui, dosma_tpu_torch.gui.gui_utils.widgets, "
+        "dosma_tpu_torch.core.sitk_interop\n"
+        "from dosma_tpu_torch import collect_env_info\n"
+        "info = collect_env_info()\n"
+        "parser, _ = dosma_tpu_torch.cli._build_parser()\n"
+        "print('matplotlib' in info, 'jax' in info, "
+        "sorted(m for m in sys.modules if m.split('.')[0] == 'tkinter'))"
+    )
+    assert out == "True False []"
+
+
+def test_parsing_the_command_line_touches_no_card():
+    """``--gpu G`` sets CUDA_VISIBLE_DEVICES, which CUDA reads only when it
+    is first initialised: importing the port and parsing the arguments must
+    not initialise it (every torch.cuda entry that would is made to fail)."""
+    out = _run(
+        "import os, torch\n"
+        "def touched(*a, **k):\n"
+        "    raise SystemExit('torch.cuda was touched')\n"
+        "for name in ('is_available', 'device_count', 'init', '_lazy_init', "
+        "'current_device', 'set_device', 'get_device_name'):\n"
+        "    setattr(torch.cuda, name, touched)\n"
+        "import dosma_tpu_torch.cli as cli\n"
+        "parser, _ = cli._build_parser()\n"
+        "vargin = vars(parser.parse_args('--gpu 3 --l x qdess --fc t2'.split()))\n"
+        "print(vargin['gpu'], vargin['scan_action'])"
+    )
+    assert out == "3 t2"
