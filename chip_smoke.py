@@ -453,23 +453,20 @@ def device_ms(fn, reps, name):
     return float(np.median(us)) / 1e3, counts
 
 
-def _wrappers():
-    from dosma_tpu_torch.ops.biexp import biexp_lm
-    from dosma_tpu_torch.ops.generic_lm import generic_lm
-    from dosma_tpu_torch.ops.monoexp import monoexp_lm
-    from dosma_tpu_torch.ops.warp import warp_grid
-
-    return {"monoexp_lm": monoexp_lm, "biexp_lm": biexp_lm, "generic_lm": generic_lm,
-            "warp_grid": warp_grid}
+KERNEL_WRAPPERS = ("monoexp_lm", "biexp_lm", "generic_lm", "warp_grid")
 
 
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from dosma_tpu_torch.utils.profiling import counters
+
+    for name in KERNEL_WRAPPERS:
+        counters[f"{name}.launches"] = 0
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    from dosma_tpu_torch.utils.profiling import counters
+
+    return {name: counters[f"{name}.launches"] for name in KERNEL_WRAPPERS}
 
 
 def expect_launches(path, **want):

@@ -21,6 +21,8 @@ from typing import Any, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from dosma_tpu_torch.utils.profiling import count
+
 __all__ = [
     "Device",
     "as_tensor",
@@ -187,12 +189,16 @@ def as_tensor(array, device=None) -> torch.Tensor:
 
     The one place a host array becomes a tensor: uint16 becomes int32 and
     uint32 becomes int64, after the move, so the narrow bytes cross to the
-    card. Host (numpy) arrays keep their dtype.
+    card. Host (numpy) arrays keep their dtype. The bytes that cross from
+    the host to another device add to the counter ``h2d.bytes``.
     """
     if not isinstance(array, torch.Tensor):
         array = torch.from_numpy(np.ascontiguousarray(array))
     if device is not None:
-        array = array.to(device)
+        moved = array.to(device)
+        if array.device.type == "cpu" and moved.device.type != "cpu":
+            count("h2d.bytes", array.numel() * array.element_size())
+        array = moved
     wide = _WIDEN.get(array.dtype)
     return array if wide is None else array.to(wide)
 

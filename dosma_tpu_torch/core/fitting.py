@@ -44,9 +44,10 @@ import numpy as np
 import torch
 
 from dosma_tpu_torch import defaults
-from dosma_tpu_torch.core.device import compute_device
+from dosma_tpu_torch.core.device import as_tensor, compute_device
 from dosma_tpu_torch.core.med_volume import MedicalVolume
 from dosma_tpu_torch.defaults import preferences
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "CurveFitter",
@@ -597,39 +598,46 @@ class MonoExponentialFit:
         y = self.y if y is None else y
         mask = self.mask if mask is None else mask
 
-        self._check_y(x, y)
-        orientation = y[0].orientation
-        y = [sv.reformat(orientation) for sv in y]
-        if len({sv.device for sv in y}) != 1:
-            raise ValueError(f"`y` volumes lie on several devices: {[sv.device for sv in y]}")
+        with annotate("dosma.fit"):
+            with annotate("dosma.fit.prepare"):
+                self._check_y(x, y)
+                orientation = y[0].orientation
+                y = [sv.reformat(orientation) for sv in y]
+                if len({sv.device for sv in y}) != 1:
+                    raise ValueError(
+                        f"`y` volumes lie on several devices: {[sv.device for sv in y]}")
 
-        if isinstance(mask, (np.ndarray, torch.Tensor)):
-            mask = MedicalVolume(mask, affine=y[0].affine)
-        if mask is not None:
-            # A mismatched mask must raise, not silently mask wrong voxels.
-            mask = mask.reformat_as(y[0])
-            if not mask.is_same_dimensions(y[0], defaults.AFFINE_DECIMAL_PRECISION):
-                raise RuntimeError("`mask` and `y` dimension mismatch")
+                if isinstance(mask, (np.ndarray, torch.Tensor)):
+                    mask = MedicalVolume(mask, affine=y[0].affine)
+                if mask is not None:
+                    # A mismatched mask must raise, not silently mask wrong voxels.
+                    mask = mask.reformat_as(y[0])
+                    if not mask.is_same_dimensions(y[0], defaults.AFFINE_DECIMAL_PRECISION):
+                        raise RuntimeError("`mask` and `y` dimension mismatch")
+                mask_flat = None if mask is None else _flat_tensor(mask.volume)
 
-        shape = y[0].shape
-        host = all(isinstance(sv.volume, np.ndarray) for sv in y)
-        yT = torch.stack([_flat_tensor(sv.volume) for sv in y], dim=0).to(
-            compute_device(*(sv.volume for sv in y)))
-        tc_flat, r2_flat = monoexp_fit_full(
-            np.asarray(x, np.float32), yT,
-            bounds=self.bounds, tc0=self.tc0,
-            r2_threshold=_validate_r2_threshold(self.r2_threshold),
-            decimal_precision=self.decimal_precision,
-            mask_flat=None if mask is None else _flat_tensor(mask.volume),
-        )
-        tc_arr, r2_arr = tc_flat.reshape(shape), r2_flat.reshape(shape)
-        if host:
-            tc_arr, r2_arr = tc_arr.cpu().numpy(), r2_arr.cpu().numpy()
+            with annotate("dosma.fit.stack"):
+                shape = y[0].shape
+                host = all(isinstance(sv.volume, np.ndarray) for sv in y)
+                yT = as_tensor(torch.stack([_flat_tensor(sv.volume) for sv in y], dim=0),
+                               compute_device(*(sv.volume for sv in y)))
+            tc_flat, r2_flat = monoexp_fit_full(
+                np.asarray(x, np.float32), yT,
+                bounds=self.bounds, tc0=self.tc0,
+                r2_threshold=_validate_r2_threshold(self.r2_threshold),
+                decimal_precision=self.decimal_precision,
+                mask_flat=mask_flat,
+            )
 
-        headers = y[0].headers()
-        headers = deepcopy(headers) if headers is not None else None
-        tc_map = y[0]._partial_clone(volume=tc_arr, headers=headers)
-        r_squared = y[0]._partial_clone(volume=r2_arr, headers=True)
+            with annotate("dosma.fit.maps"):
+                tc_arr, r2_arr = tc_flat.reshape(shape), r2_flat.reshape(shape)
+                if host:
+                    tc_arr, r2_arr = tc_arr.cpu().numpy(), r2_arr.cpu().numpy()
+
+                headers = y[0].headers()
+                headers = deepcopy(headers) if headers is not None else None
+                tc_map = y[0]._partial_clone(volume=tc_arr, headers=headers)
+                r_squared = y[0]._partial_clone(volume=r2_arr, headers=True)
         return tc_map, r_squared
 
     def _check_y(self, x, y):

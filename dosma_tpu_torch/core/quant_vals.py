@@ -27,6 +27,7 @@ import torch
 
 from dosma_tpu_torch.core.device import as_tensor
 from dosma_tpu_torch.core.med_volume import MedicalVolume
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = ["QuantitativeValueType", "QuantitativeValue", "T1Rho", "T2", "T2Star", "get_qv"]
 
@@ -123,25 +124,30 @@ class QuantitativeValue:
         """
         from dosma_tpu_torch.ops.analytics import gather_voxels, summary, volume_tensor
 
-        volume = volume_tensor(self.volumetric_map.volume)
-        if mask is None:
-            regions = [("total", volume[torch.isfinite(volume)
-                                        & self._bounds_mask(volume, bounds, closed)])]
-        else:
-            # One gather of every voxel with mask > 0; validity depends on
-            # the value alone, so it is tested on the gathered vector.
-            mask_t = as_tensor(mask.reformat(self.volumetric_map.orientation).volume,
-                               volume.device).reshape(-1)
-            flat = torch.nonzero(mask_t > 0).squeeze(1)
-            region_labels = mask_t[flat]
-            if labels is None:
-                labels = {int(v): f"label_{int(v)}" for v in torch.unique(region_labels).tolist()}
-            values = gather_voxels(volume, flat)
-            valid = torch.isfinite(values) & self._bounds_mask(values, bounds, closed)
-            values, region_labels = values[valid], region_labels[valid]
-            regions = [(name, values[region_labels == label]) for label, name in labels.items()]
-            regions.append(("total", values))
-        return [{"Category": name, **summary(values, fns)} for name, values in regions]
+        with annotate("dosma.rows"):
+            with annotate("dosma.rows.gather"):
+                volume = volume_tensor(self.volumetric_map.volume)
+                if mask is None:
+                    regions = [("total", volume[torch.isfinite(volume)
+                                                & self._bounds_mask(volume, bounds, closed)])]
+                else:
+                    # One gather of every voxel with mask > 0; validity depends on
+                    # the value alone, so it is tested on the gathered vector.
+                    mask_t = as_tensor(mask.reformat(self.volumetric_map.orientation).volume,
+                                       volume.device).reshape(-1)
+                    flat = torch.nonzero(mask_t > 0).squeeze(1)
+                    region_labels = mask_t[flat]
+                    if labels is None:
+                        labels = {int(v): f"label_{int(v)}"
+                                  for v in torch.unique(region_labels).tolist()}
+                    values = gather_voxels(volume, flat)
+                    valid = torch.isfinite(values) & self._bounds_mask(values, bounds, closed)
+                    values, region_labels = values[valid], region_labels[valid]
+                    regions = [(name, values[region_labels == label])
+                               for label, name in labels.items()]
+                    regions.append(("total", values))
+            with annotate("dosma.rows.summary"):
+                return [{"Category": name, **summary(values, fns)} for name, values in regions]
 
     def to_metrics(
         self,

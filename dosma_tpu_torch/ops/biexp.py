@@ -29,6 +29,7 @@ import torch
 
 from dosma_tpu_torch.ops.monoexp import _detect_uniform_x, _exp_cols, _tmean, _tsum
 from dosma_tpu_torch.ops.nlls import _apply_nan_policy
+from dosma_tpu_torch.utils.profiling import count
 
 __all__ = ["biexp_lm", "biexp_lm_reference"]
 
@@ -161,7 +162,7 @@ def _packed_kernel(x, yT, p0, max_iter, ftol, xtol, uniform_x) -> torch.Tensor:
         p0_sp, p0_sn = p0.stride(1), p0.stride(0)
     with torch.cuda.device(yT.device):
         stream = torch.cuda.current_stream().cuda_stream
-        biexp_lm.launches += 1
+        count("biexp_lm.launches")
         err = fn(
             x.data_ptr(), yT.data_ptr(), yT.stride(0), yT.stride(1),
             p0.data_ptr(), p0_sp, p0_sn, out.data_ptr(), N, T,
@@ -256,9 +257,6 @@ def biexp_lm(
         All-zero voxels are NaN with r2 = 0.
     """
     return _fit(None, x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy, y_layout)
-
-
-biexp_lm.launches = 0  # kernel launches; only _packed_kernel adds to it
 
 
 def biexp_lm_reference(

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from dosma_tpu_torch.ops.nlls import _apply_nan_policy, _finish, _lm_loop
+from dosma_tpu_torch.utils.profiling import count
 
 __all__ = [
     "MAX_P",
@@ -417,7 +418,7 @@ def _packed_kernel(program, x, yT, p0, max_iter, ftol, xtol) -> torch.Tensor:
         p0_sp, p0_sn = p0.stride(1), p0.stride(0)
     with torch.cuda.device(yT.device):
         stream = torch.cuda.current_stream().cuda_stream
-        generic_lm.launches += 1
+        count("generic_lm.launches")
         err = fn(
             x.data_ptr(), yT.data_ptr(), yT.stride(0), yT.stride(1),
             p0.data_ptr(), p0_sp, p0_sn, out.data_ptr(), N, T,
@@ -504,9 +505,6 @@ def generic_lm(
         (popt (N, P), r2 (N,), converged (N,) bool), on ``y``'s device.
     """
     return _fit(None, model, x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy, y_layout)
-
-
-generic_lm.launches = 0  # kernel launches; only _packed_kernel adds to it
 
 
 def generic_lm_reference(

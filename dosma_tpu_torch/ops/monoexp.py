@@ -23,6 +23,9 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from dosma_tpu_torch.core.device import as_tensor
+from dosma_tpu_torch.utils.profiling import count
+
 __all__ = ["monoexp_lm", "monoexp_lm_reference"]
 
 _OUT_ROWS = 4  # [a, b, r2, converged]
@@ -190,7 +193,7 @@ def _packed_kernel(x, yT, p0b, max_iter, ftol, xtol, uniform_x, fmad=False) -> t
     fn = _kernel_fn(fmad)
     with torch.cuda.device(yT.device):
         stream = torch.cuda.current_stream().cuda_stream
-        monoexp_lm.launches += 1
+        count("monoexp_lm.launches")
         err = fn(
             x.data_ptr(), yT.data_ptr(), yT.stride(0), yT.stride(1),
             None if p0b is None else p0b.data_ptr(),
@@ -236,11 +239,13 @@ def _fit(
             raise ValueError(f"monoexp_lm runs on cpu or cuda tensors, got {device}")
     T, N = yT.shape
 
-    x_dev = torch.as_tensor(x_host, device=device)
+    x_dev = as_tensor(x_host, device)
     if p0 is None:
         p0b = None
     else:
-        p0_t = torch.as_tensor(p0, dtype=torch.float32, device=device)
+        if not isinstance(p0, torch.Tensor):
+            p0 = np.asarray(p0, np.float32)
+        p0_t = as_tensor(p0, device).to(torch.float32)
         p0b = p0_t[1].reshape(1) if p0_t.ndim == 1 else p0_t[:, 1]
         if p0b.numel() not in (1, N):
             raise ValueError(f"p0 must be (2,) or ({N}, 2), got {tuple(p0_t.shape)}")
@@ -295,9 +300,6 @@ def monoexp_lm(
         All-zero voxels are NaN with r2 = 0.
     """
     return _fit(None, x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy, y_layout, uniform_x)
-
-
-monoexp_lm.launches = 0  # kernel launches; only _packed_kernel adds to it
 
 
 def monoexp_lm_reference(

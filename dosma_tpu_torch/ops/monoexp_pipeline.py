@@ -14,7 +14,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from dosma_tpu_torch.core.device import as_tensor
 from dosma_tpu_torch.ops.monoexp import _detect_uniform_x, monoexp_lm
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = ["monoexp_fit_full"]
 
@@ -59,22 +61,22 @@ def monoexp_fit_full(
     else:
         p0 = torch.tensor([1.0, -1.0 / float(tc0)], dtype=torch.float32, device=device)
 
-    popt, r2, _ = monoexp_lm(
-        x, yT, p0, max_iter=max_iter, y_layout="tn", uniform_x=uniform_x
-    )
+    with annotate("dosma.fit.lm"):
+        popt, r2, _ = monoexp_lm(
+            x, yT, p0, max_iter=max_iter, y_layout="tn", uniform_x=uniform_x
+        )
 
-    lb, ub = bounds
-    tc = 1.0 / torch.abs(popt[:, 1])
-    tc = torch.where((tc < lb) | (tc > ub), torch.nan, tc)
-    if r2_threshold is not None:
-        tc = torch.where(r2 < r2_threshold, torch.nan, tc)
-    if mask_flat is not None:
-        if not isinstance(mask_flat, torch.Tensor):
-            mask_flat = torch.from_numpy(np.ascontiguousarray(mask_flat))
-        inside = mask_flat.to(device=device, dtype=torch.float32).reshape(-1) > 0
-        tc = torch.where(inside, tc, torch.nan)
-        r2 = torch.where(inside, r2, nan_fill)
-    tc = torch.nan_to_num(tc, nan=nan_fill)
-    if decimal_precision is not None:
-        tc = torch.round(tc, decimals=int(decimal_precision))
+    with annotate("dosma.fit.post"):
+        lb, ub = bounds
+        tc = 1.0 / torch.abs(popt[:, 1])
+        tc = torch.where((tc < lb) | (tc > ub), torch.nan, tc)
+        if r2_threshold is not None:
+            tc = torch.where(r2 < r2_threshold, torch.nan, tc)
+        if mask_flat is not None:
+            inside = as_tensor(mask_flat, device).to(torch.float32).reshape(-1) > 0
+            tc = torch.where(inside, tc, torch.nan)
+            r2 = torch.where(inside, r2, nan_fill)
+        tc = torch.nan_to_num(tc, nan=nan_fill)
+        if decimal_precision is not None:
+            tc = torch.round(tc, decimals=int(decimal_precision))
     return tc, r2

@@ -53,6 +53,7 @@ from dosma_tpu_torch.ops.bspline import (
     subdivide_control_grid,
 )
 from dosma_tpu_torch.ops.warp import warp_grid_batched
+from dosma_tpu_torch.utils.profiling import annotate, count
 
 __all__ = [
     "RegistrationParams",
@@ -520,75 +521,82 @@ def _pyramid_core(
     theta = theta0
     losses = []
     for level_idx, sigma in enumerate(sigmas):
-        f_s = _gauss_smooth3(fixed_arr, sigma, radius)
-        m_s = _gauss_smooth3(moving_arr, sigma, radius)
-        # Metric-sampling interpolator: order 3 prefilters and pads the
-        # smoothed moving image once per level.
-        m_cp = interp.cubic_coeffs(m_s) if interp_order == 3 else None
-        mask_s = _gauss_smooth3(fixed_mask, sigma, radius) if fixed_mask is not None else None
-        mmask_s = _gauss_smooth3(moving_mask, sigma, radius) if moving_mask is not None else None
-        f_lo, f_hi = torch.min(f_s), torch.max(f_s)
-        m_lo, m_hi = torch.min(m_s), torch.max(m_s)
+        with annotate("dosma.register.level"):
+            with annotate("dosma.register.prep"):
+                f_s = _gauss_smooth3(fixed_arr, sigma, radius)
+                m_s = _gauss_smooth3(moving_arr, sigma, radius)
+                # Metric-sampling interpolator: order 3 prefilters and pads the
+                # smoothed moving image once per level.
+                m_cp = interp.cubic_coeffs(m_s) if interp_order == 3 else None
+                mask_s = (_gauss_smooth3(fixed_mask, sigma, radius)
+                          if fixed_mask is not None else None)
+                mmask_s = (_gauss_smooth3(moving_mask, sigma, radius)
+                           if moving_mask is not None else None)
+                f_lo, f_hi = torch.min(f_s), torch.max(f_s)
+                m_lo, m_hi = torch.min(m_s), torch.max(m_s)
 
-        # The fixed side of the metric does not depend on theta: draw every
-        # iteration's coordinates up front, sort each iteration's samples by
-        # linear index (the metric is permutation-invariant; the moving-side
-        # gathers then walk near-monotone addresses), and sample fixed
-        # values, mask weights and world coordinates in one pass.
-        u = _level_draws(seed, level_idx, iterations, num_samples, dev)
-        idx_all = u * shape_m1[None, :, None]
-        lin = (idx_all[:, 0] * fshape[1] + idx_all[:, 1]) * fshape[2] + idx_all[:, 2]
-        order = torch.argsort(lin, dim=1, stable=True)
-        idx_all = torch.take_along_dim(idx_all, order[:, None, :], dim=2)
-        flat = idx_all.permute(1, 0, 2).reshape(3, iterations * num_samples)
-        fixed_vals_all = _trilinear_sample(f_s, flat).reshape(iterations, num_samples)
-        w0_all = (_trilinear_sample(mask_s, flat).reshape(iterations, num_samples)
-                  if mask_s is not None else None)
-        flat_h = torch.cat([flat, torch.ones((1, flat.shape[1]), device=dev)])
-        world_all = _mm(fixed_affine, flat_h).reshape(4, iterations, num_samples).permute(1, 0, 2)
+                # The fixed side of the metric does not depend on theta: draw every
+                # iteration's coordinates up front, sort each iteration's samples by
+                # linear index (the metric is permutation-invariant; the moving-side
+                # gathers then walk near-monotone addresses), and sample fixed
+                # values, mask weights and world coordinates in one pass.
+                u = _level_draws(seed, level_idx, iterations, num_samples, dev)
+                idx_all = u * shape_m1[None, :, None]
+                lin = (idx_all[:, 0] * fshape[1] + idx_all[:, 1]) * fshape[2] + idx_all[:, 2]
+                order = torch.argsort(lin, dim=1, stable=True)
+                idx_all = torch.take_along_dim(idx_all, order[:, None, :], dim=2)
+                flat = idx_all.permute(1, 0, 2).reshape(3, iterations * num_samples)
+                fixed_vals_all = _trilinear_sample(f_s, flat).reshape(iterations, num_samples)
+                w0_all = (_trilinear_sample(mask_s, flat).reshape(iterations, num_samples)
+                          if mask_s is not None else None)
+                flat_h = torch.cat([flat, torch.ones((1, flat.shape[1]), device=dev)])
+                world_all = _mm(fixed_affine, flat_h).reshape(
+                    4, iterations, num_samples).permute(1, 0, 2)
 
-        def loss_fn(theta_n, it):
-            th = theta_n * param_scale
-            M = _params_to_matrix(th, center, transform)
-            m_idx = _mm(inv_moving, _mm(M, world_all[it]))[:3]
-            if interp_order == 3:
-                moving_vals = interp.cubic_sample_coeffs(m_cp, m_idx)
-            else:
-                moving_vals = _trilinear_sample(m_s, m_idx)
-            # Downweight samples that map outside the moving volume.
-            inside = torch.all((m_idx >= 0) & (m_idx <= m_hi_idx), dim=0)
-            w0 = w0_all[it] if w0_all is not None else 1.0
-            weights = w0 * (0.01 + 0.99 * inside.to(torch.float32))
-            if mmask_s is not None:
-                weights = weights * _trilinear_sample(mmask_s, m_idx)
-            fixed_vals = fixed_vals_all[it]
-            if metric == "mi":
-                return _soft_mi(fixed_vals, moving_vals, weights, num_bins, f_lo, f_hi,
-                                m_lo, m_hi, kernel=mi_kernel)
-            if metric == "ncc":
-                return _ncc(fixed_vals, moving_vals, weights)
-            return _mse(fixed_vals, moving_vals, weights)
+            def loss_fn(theta_n, it):
+                th = theta_n * param_scale
+                M = _params_to_matrix(th, center, transform)
+                m_idx = _mm(inv_moving, _mm(M, world_all[it]))[:3]
+                if interp_order == 3:
+                    moving_vals = interp.cubic_sample_coeffs(m_cp, m_idx)
+                else:
+                    moving_vals = _trilinear_sample(m_s, m_idx)
+                # Downweight samples that map outside the moving volume.
+                inside = torch.all((m_idx >= 0) & (m_idx <= m_hi_idx), dim=0)
+                w0 = w0_all[it] if w0_all is not None else 1.0
+                weights = w0 * (0.01 + 0.99 * inside.to(torch.float32))
+                if mmask_s is not None:
+                    weights = weights * _trilinear_sample(mmask_s, m_idx)
+                fixed_vals = fixed_vals_all[it]
+                if metric == "mi":
+                    return _soft_mi(fixed_vals, moving_vals, weights, num_bins, f_lo, f_hi,
+                                    m_lo, m_hi, kernel=mi_kernel)
+                if metric == "ncc":
+                    return _ncc(fixed_vals, moving_vals, weights)
+                return _mse(fixed_vals, moving_vals, weights)
 
-        theta_n = (theta / param_scale).detach()
-        mu, nu = torch.zeros_like(theta_n), torch.zeros_like(theta_n)
-        acc = torch.zeros_like(theta_n)
-        level_losses = []
-        for it in range(iterations):
-            theta_n.requires_grad_(True)
-            loss = loss_fn(theta_n, it)
-            (grad,) = torch.autograd.grad(loss, theta_n)
-            with torch.no_grad():
-                theta_n, mu, nu = _adam_step(theta_n.detach(), grad, mu, nu, it, lrs[it])
-                if it >= tail_start:
-                    acc = acc + theta_n
-            level_losses.append(loss.detach())
-        # Polyak tail average over the last quarter; iterations == 0 is a
-        # no-op stage that keeps its seed.
-        n_tail = iterations - tail_start
-        theta_n = acc / float(n_tail) if n_tail > 0 else theta_n.detach()
-        theta = theta_n * param_scale
-        losses.append(torch.stack(level_losses) if level_losses
-                      else torch.zeros(0, device=dev))
+            with annotate("dosma.register.adam"):
+                theta_n = (theta / param_scale).detach()
+                mu, nu = torch.zeros_like(theta_n), torch.zeros_like(theta_n)
+                acc = torch.zeros_like(theta_n)
+                level_losses = []
+                for it in range(iterations):
+                    count("adam.iterations")
+                    theta_n.requires_grad_(True)
+                    loss = loss_fn(theta_n, it)
+                    (grad,) = torch.autograd.grad(loss, theta_n)
+                    with torch.no_grad():
+                        theta_n, mu, nu = _adam_step(theta_n.detach(), grad, mu, nu, it, lrs[it])
+                        if it >= tail_start:
+                            acc = acc + theta_n
+                    level_losses.append(loss.detach())
+                # Polyak tail average over the last quarter; iterations == 0 is a
+                # no-op stage that keeps its seed.
+                n_tail = iterations - tail_start
+                theta_n = acc / float(n_tail) if n_tail > 0 else theta_n.detach()
+            theta = theta_n * param_scale
+            losses.append(torch.stack(level_losses) if level_losses
+                          else torch.zeros(0, device=dev))
     return theta, torch.stack(losses)
 
 
@@ -651,10 +659,12 @@ def _optimize_chain_impl(
     B = _world_matrix_to_index_map(M, fixed_affine, moving_affine)
     warped = warped_extras = None
     if warp:
-        stack = moving_arr[None] if extras is None else torch.cat([moving_arr[None], extras])
-        warped_all = _warp_arr_batch(stack, B, tuple(fixed_arr.shape), final_order)
-        warped = warped_all[0]
-        warped_extras = warped_all[1:] if extras is not None else None
+        with annotate("dosma.register.warp"):
+            stack = (moving_arr[None] if extras is None
+                     else torch.cat([moving_arr[None], extras]))
+            warped_all = _warp_arr_batch(stack, B, tuple(fixed_arr.shape), final_order)
+            warped = warped_all[0]
+            warped_extras = warped_all[1:] if extras is not None else None
     return tuple(Ms), warped, warped_extras, tuple(losses_all), B
 
 

@@ -50,6 +50,7 @@ from dosma_tpu_torch.ops.interp import (
     _trilinear_gather,
     cubic_coeffs_batch,
 )
+from dosma_tpu_torch.utils.profiling import count
 
 __all__ = ["warp_grid", "warp_grid_reference", "warp_grid_batched", "prepare_sources",
            "warp_branches"]
@@ -246,7 +247,7 @@ def _launch(srcs: torch.Tensor, B: torch.Tensor, out_shape, order: int) -> torch
     fn = _kernel_fn()
     with torch.cuda.device(srcs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        warp_grid.launches += 1
+        count("warp_grid.launches")
         err = fn(srcs.data_ptr(), B.data_ptr(), out.data_ptr(), B.shape[0], nb // B.shape[0],
                  *(int(s) for s in srcs.shape[1:]), *out_shape, int(order), *hi, stream)
     if err != 0:
@@ -281,9 +282,6 @@ def warp_grid(srcs: torch.Tensor, B: torch.Tensor, out_shape: Sequence[int],
     if srcs.device.type == "cpu":
         return warp_grid_reference(srcs, B, out_shape, order)
     raise ValueError(f"warp_grid runs on cpu or cuda tensors, got {srcs.device}")
-
-
-warp_grid.launches = 0  # kernel launches; only _launch adds to it
 
 
 def warp_grid_batched(vols, B, out_shape: Sequence[int], order: int) -> torch.Tensor:

@@ -17,6 +17,7 @@ from dosma_tpu_torch.core import quant_vals as qv
 from dosma_tpu_torch.core.fitting import MonoExponentialFit
 from dosma_tpu_torch.core.io import format_io_utils as fio_utils
 from dosma_tpu_torch.utils.cmd_line_utils import ActionWrapper
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "times_from_headers",
@@ -70,15 +71,16 @@ def monoexp_qv_fit(
     """Masked monoexponential fit (one ``monoexp_lm`` launch for volumes on
     a card) → a QuantitativeValue with an r² extra, added to the tissue
     when one is given."""
-    fitter = MonoExponentialFit(
-        bounds=bounds, tc0=tc0, decimal_precision=decimal_precision, num_workers=num_workers
-    )
-    tc_map, r2 = fitter.fit(xs, ys, mask=resolve_fit_mask(tissue, mask_path))
+    with annotate("dosma.fit.scan"):
+        fitter = MonoExponentialFit(
+            bounds=bounds, tc0=tc0, decimal_precision=decimal_precision, num_workers=num_workers
+        )
+        tc_map, r2 = fitter.fit(xs, ys, mask=resolve_fit_mask(tissue, mask_path))
 
-    result = qv_type(tc_map)
-    result.add_additional_volume("r2", r2)
-    if tissue is not None:
-        tissue.add_quantitative_value(result)
+        result = qv_type(tc_map)
+        result.add_additional_volume("r2", r2)
+        if tissue is not None:
+            tissue.add_quantitative_value(result)
     return result
 
 

@@ -3,10 +3,35 @@
 - :func:`trace`: a ``torch.profiler`` session around a block (the CPU, and
   the cards when CUDA is available), written as a Chrome trace into
   ``log_dir`` (open it in Perfetto or ``chrome://tracing``);
-- :func:`annotate`: a named region (``torch.profiler.record_function``),
-  shown in such traces;
+- :func:`annotate`: a named region, recorded only while a profiler session
+  is active (a shared no-op context otherwise);
+- :data:`counters` and :func:`count`: integer counters that are always on;
 - :class:`StageTimer`: named wall-clock stage timers with a printable
   report, as in ``dosma_tpu``.
+
+The package's own spans, recorded by any ``torch.profiler`` session (this
+one's :func:`trace` included) beside the kernels and copies of the card:
+
+- ``dosma.fit`` (``MonoExponentialFit.fit``) and its stages
+  ``dosma.fit.prepare`` (checks, ``reformat``, the mask's alignment),
+  ``dosma.fit.stack`` (the echo stack on the compute device),
+  ``dosma.fit.lm`` (``monoexp_lm`` with its small copies and NaN policy),
+  ``dosma.fit.post`` (bounds, r², mask, ``nan_to_num``, rounding) and
+  ``dosma.fit.maps`` (reshape, the host copy back, headers, the volumes);
+  ``dosma.fit.scan`` around it in a scan's map method;
+- ``dosma.rows`` (``QuantitativeValue.metric_rows``) and its stages
+  ``dosma.rows.gather`` (the mask's crossing, the gather, validity and
+  per-label selection) and ``dosma.rows.summary`` (the statistics);
+- ``dosma.register.level`` (one pyramid level of a matrix stage), with
+  ``dosma.register.prep`` (smoothing, draws, the fixed side's samples) and
+  ``dosma.register.adam`` (the level's Adam loop), and
+  ``dosma.register.warp`` (a chain's final warp).
+
+Counters: ``h2d.bytes`` (bytes of host tensors or arrays copied to a card
+by :func:`dosma_tpu_torch.core.device.as_tensor`), ``adam.iterations``
+(iterations of the matrix stages' Adam loops), and the hand-written
+kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
+``generic_lm.launches`` and ``warp_grid.launches``.
 """
 
 from __future__ import annotations
@@ -15,13 +40,24 @@ import contextlib
 import logging
 import os
 import time
+from collections import Counter
 from typing import Dict, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
 
-__all__ = ["trace", "annotate", "StageTimer"]
+__all__ = ["trace", "annotate", "counters", "count", "StageTimer"]
 
 _logger = logging.getLogger(__name__)
+
+# A record function of the FUNCTION scope: a CPU event of the profiler, as an
+# aten op is. ``torch.profiler.record_function`` (the USER scope) would also
+# put a copy of each span on the card's timeline, where a reader of the trace
+# would take it for device work.
+_record = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+
+counters: Counter = Counter()
 
 
 @contextlib.contextmanager
@@ -48,8 +84,15 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named region for traces (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+    """Named region for traces: a record function while a profiler session
+    is active, else a shared no-op context (one check of the profiler's
+    state, no record function entered)."""
+    return _record(name) if _profiler_enabled() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of :data:`counters`."""
+    counters[name] += n
 
 
 class StageTimer:

@@ -31,7 +31,7 @@ from dosma_tpu.ops import bspline as jbs
 from dosma_tpu.ops import registration as jreg
 from dosma_tpu_torch.ops import bspline as tbs
 from dosma_tpu_torch.ops import registration as treg
-from dosma_tpu_torch.ops import warp as twarp
+from dosma_tpu_torch.utils.profiling import counters
 
 
 @pytest.fixture(autouse=True)
@@ -291,9 +291,9 @@ def test_mixed_chain_runs_in_chunks(deformed_pair, monkeypatch):
     stages = [("bspline", _ctrl(grid_shape, seed=10, amp=1.0), sp)]
     whole = treg.warp_volume_chain(moving, stages, A, A, SHAPE, order=3)
     monkeypatch.setattr(treg, "_CHAIN_CHUNK", 1000)  # 11 chunks, the last partial
-    before = twarp.warp_grid.launches
+    before = counters["warp_grid.launches"]
     chunked = treg.warp_volume_chain(moving, stages, A, A, SHAPE, order=3)
-    assert twarp.warp_grid.launches == before
+    assert counters["warp_grid.launches"] == before
     np.testing.assert_array_equal(chunked, whole)
     t = treg.warp_volume_chain(torch.from_numpy(moving), stages, A, A, SHAPE, order=1)
     assert isinstance(t, torch.Tensor) and t.dtype == torch.float32

@@ -30,7 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 import dosma_tpu
 import dosma_tpu_torch
 from dosma_tpu.ops import monoexp_pallas
-from dosma_tpu_torch.ops.monoexp import monoexp_lm
+from dosma_tpu_torch.utils.profiling import counters
 
 
 @pytest.fixture(autouse=True)
@@ -85,9 +85,9 @@ def _fit_both(monkeypatch, kwargs, with_mask):
     monkeypatch.setattr(monoexp_pallas, "pallas_supported", lambda: True)
     with pltpu.force_tpu_interpret_mode():
         tc_j, r2_j = dosma_tpu.MonoExponentialFit(**kwargs).fit(_X, ys_j, mask=mask_j)
-    launches = monoexp_lm.launches
+    launches = counters["monoexp_lm.launches"]
     tc_t, r2_t = dosma_tpu_torch.MonoExponentialFit(**kwargs).fit(_X, ys_t, mask=mask_t)
-    assert monoexp_lm.launches == launches
+    assert counters["monoexp_lm.launches"] == launches
     return (tc_j, r2_j, mask_j), (tc_t, r2_t, mask_t)
 
 

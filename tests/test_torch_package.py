@@ -84,9 +84,10 @@ def test_ops_import_and_run_without_nvcc(tmp_path):
     out = _run(
         "import numpy as np, torch\n"
         "from dosma_tpu_torch.ops.monoexp import monoexp_lm\n"
+        "from dosma_tpu_torch.utils.profiling import counters\n"
         "y = torch.exp(-torch.arange(1, 5, dtype=torch.float32) / 20).repeat(3, 1)\n"
         "popt, r2, conv = monoexp_lm(np.float32([1, 2, 3, 4]), y)\n"
-        "print(monoexp_lm.launches, bool(conv.all()), round(float(popt[0, 1]), 4))",
+        "print(counters['monoexp_lm.launches'], bool(conv.all()), round(float(popt[0, 1]), 4))",
         env=env,
     )
     assert out == "0 True -0.05"

@@ -183,12 +183,12 @@ def test_sharded_fit_kernel_names():
     with pytest.raises(ValueError, match="Unknown kernel"):
         tsh.sharded_lm_fit(W.mono_user, x, Y, np.array([1.0, -0.1]), kernel="pallas")
     # "auto" with the library monoexponential on the CPU: its plain version.
-    from dosma_tpu_torch.ops import monoexp
+    from dosma_tpu_torch.utils.profiling import counters
 
-    launches = monoexp.monoexp_lm.launches
+    launches = counters["monoexp_lm.launches"]
     popt, _, conv = tsh.sharded_lm_fit(dt.monoexponential, x, Y, np.array([1.0, -0.1]),
                                        max_iter=50)
-    assert monoexp.monoexp_lm.launches == launches and conv.all()
+    assert counters["monoexp_lm.launches"] == launches and conv.all()
     np.testing.assert_allclose(popt[:, 1], -np.linspace(0.1, 0.5, 5), rtol=1e-4)
     # Per-voxel p0 is split like y; a tensor y gives tensors on its device.
     p0 = np.tile(np.array([1.0, -0.2], np.float32), (5, 1))

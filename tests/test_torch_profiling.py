@@ -73,3 +73,119 @@ def test_trace_of_a_sharded_fit_shows_the_plain_version_on_the_cpu(tmp_path):
             sharded_lm_fit(dt.monoexponential, x, Y, np.array([1.0, -0.03]), max_iter=20)
     names = {e.get("name") for e in json.loads(open(prof.trace_path).read())["traceEvents"]}
     assert "sharded_fit" in names and "aten::exp" in names
+
+
+# ---------------------------------------------------------------- the spans
+def _spans(trace_path, prefix="dosma."):
+    """(name, start, end, category) of the trace's complete events named
+    ``prefix...``."""
+    events = json.loads(open(trace_path).read())["traceEvents"]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"], e.get("cat")) for e in events
+            if e.get("ph") == "X" and str(e.get("name")).startswith(prefix)]
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def test_annotate_enters_no_record_function_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a record function was entered for {name}")
+
+    monkeypatch.setattr(tprof, "_record", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    with tprof.annotate("dosma.fit"):
+        with tprof.annotate("dosma.fit.lm"):
+            torch.ones(4).sum()
+    assert tprof.annotate("a") is tprof.annotate("b")  # one shared no-op context
+
+
+def _echoes(shape=(6, 5, 4)):
+    x = [10.0, 20.0, 30.0, 40.0]
+    tc = np.random.RandomState(0).uniform(20, 60, shape).astype(np.float32)
+    ys = [dt.MedicalVolume(np.exp(-t / tc).astype(np.float32), np.eye(4)) for t in x]
+    mask = dt.MedicalVolume((tc > 30).astype(np.uint8), np.eye(4))
+    return x, ys, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fit_stages_nest_in_the_fit_span(tmp_path, masked):
+    x, ys, mask = _echoes()
+    with tprof.trace(str(tmp_path)) as prof:
+        dt.MonoExponentialFit(tc0="polyfit").fit(x, ys, mask=mask if masked else None)
+    spans = _spans(prof.trace_path)
+    (fit,) = [s for s in spans if s[0] == "dosma.fit"]
+    stages = {s[0]: s for s in spans if s[0] != "dosma.fit"}
+    assert set(stages) == {f"dosma.fit.{k}" for k in ("prepare", "stack", "lm", "post", "maps")}
+    assert all(_inside(s, fit) for s in stages.values())
+    # CPU events of the profiler, not user annotations: the card gets no copy.
+    assert {s[3] for s in spans} == {"cpu_op"}
+
+
+def test_scan_map_span_holds_the_fit(tmp_path):
+    x, ys, _ = _echoes()
+    with tprof.trace(str(tmp_path)) as prof:
+        dt.CubeQuant(ys, spin_lock_times=x).generate_t1_rho_map()
+    spans = _spans(prof.trace_path, "dosma.fit")
+    (scan,) = [s for s in spans if s[0] == "dosma.fit.scan"]
+    (fit,) = [s for s in spans if s[0] == "dosma.fit"]
+    assert _inside(fit, scan)
+
+
+def test_metric_rows_stages_nest_in_the_rows_span(tmp_path):
+    x, ys, mask = _echoes()
+    tc, _ = dt.MonoExponentialFit(tc0="polyfit").fit(x, ys)
+    with tprof.trace(str(tmp_path)) as prof:
+        rows = dt.T2(tc).metric_rows(mask, {1: "inside"})
+    assert [r["Category"] for r in rows] == ["inside", "total"]
+    spans = _spans(prof.trace_path)
+    (whole,) = [s for s in spans if s[0] == "dosma.rows"]
+    stages = [s for s in spans if s[0] != "dosma.rows"]
+    assert sorted(s[0] for s in stages) == ["dosma.rows.gather", "dosma.rows.summary"]
+    assert all(_inside(s, whole) for s in stages)
+
+
+def test_registration_spans_a_level_each_and_counts_adam_iterations(tmp_path):
+    from dosma_tpu_torch.ops import registration as treg
+
+    shape = (12, 12, 8)
+    fixed = np.zeros(shape, np.float32)
+    fixed[3:9, 4:10, 2:6] = 1.0
+    moving = np.roll(fixed, 1, axis=0)
+    params = treg.RegistrationParams(transform="translation", metric="mse", resolutions=2,
+                                     iterations=3, num_samples=64)
+    before = tprof.counters["adam.iterations"]
+    with tprof.trace(str(tmp_path)) as prof:
+        treg.register_chain(fixed, np.eye(4), moving, np.eye(4), [params])
+    assert tprof.counters["adam.iterations"] - before == 2 * 3
+    spans = _spans(prof.trace_path, "dosma.register")
+    levels = [s for s in spans if s[0] == "dosma.register.level"]
+    assert len(levels) == 2
+    for name in ("dosma.register.prep", "dosma.register.adam"):
+        inner = [s for s in spans if s[0] == name]
+        assert len(inner) == 2 and all(any(_inside(s, lv) for lv in levels) for s in inner)
+    (warp,) = [s for s in spans if s[0] == "dosma.register.warp"]
+    assert not any(_inside(warp, lv) for lv in levels)
+
+
+def test_h2d_bytes_count_host_to_device_copies_only():
+    from dosma_tpu_torch.core.device import as_tensor
+
+    before = tprof.counters["h2d.bytes"]
+    as_tensor(np.ones((3, 5), np.float32), "cpu")  # host to host
+    as_tensor(torch.ones(7, dtype=torch.float64), torch.device("cpu"))
+    assert tprof.counters["h2d.bytes"] == before
+    out = as_tensor(np.ones((3, 5), np.uint16), "meta")  # the meta device stands in for a card
+    assert out.device.type == "meta" and out.dtype == torch.int32
+    assert tprof.counters["h2d.bytes"] == before + 3 * 5 * 2  # the narrow bytes cross
+    as_tensor(torch.ones(7, dtype=torch.float64), torch.device("meta"))
+    assert tprof.counters["h2d.bytes"] == before + 30 + 56
+    as_tensor(out, "meta")  # already on the device
+    assert tprof.counters["h2d.bytes"] == before + 30 + 56
+
+
+def test_count_adds_to_the_registry():
+    before = tprof.counters["test.count"]
+    tprof.count("test.count")
+    tprof.count("test.count", 4)
+    assert tprof.counters["test.count"] == before + 5

@@ -133,17 +133,17 @@ def card_default_fits():
     rows' device, popt)``."""
     from dosma_tpu_torch.core import fitting
     from dosma_tpu_torch.core.device import set_default_device
-    from dosma_tpu_torch.ops.monoexp import monoexp_lm
     from dosma_tpu_torch.parallel.sharding import sharded_lm_fit
+    from dosma_tpu_torch.utils.profiling import counters
 
     set_default_device(None)
     x, Y, p0 = _mono_case()
     out = {}
     for name, y in (("card", torch.from_numpy(Y).cuda()), ("host", Y)):
-        before = monoexp_lm.launches
+        before = counters["monoexp_lm.launches"]
         popt = sharded_lm_fit(fitting.monoexponential, x, y, p0)[0]
         where = str(popt.device) if isinstance(popt, torch.Tensor) else "numpy"
-        out[name] = (monoexp_lm.launches - before, where, np.asarray(torch.as_tensor(popt).cpu()))
+        out[name] = (counters["monoexp_lm.launches"] - before, where, np.asarray(torch.as_tensor(popt).cpu()))
     return out
 
 
