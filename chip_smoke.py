@@ -15,7 +15,7 @@ Phases (any failure raises and exits non-zero):
      collect_env_info();
   2. build every kernel from dosma_tpu_torch/csrc/, one nvcc process per
      source, all started together: monoexp_lm.cu, biexp_lm.cu,
-     warp_grid.cu and the generic LM kernel generated for each model used
+     warp_grid.cu, region_stats.cu and the generic LM kernel generated for each model used
      below; print the nvcc seconds and the ptxas register
      and spill counts (for warp_grid, each order's kernel); beside them,
      g++ builds the host DICOM reader and codecs (csrc/host/*.cpp);
@@ -35,12 +35,22 @@ Phases (any failure raises and exits non-zero):
      multiple of the tile, one point along an axis), a zoom-out by 3 (which
      must take the gather branch) and a NaN matrix; each case prints the
      branch its blocks take (ops/warp.py::warp_branches); every voxel within
-     1e-5 * max(1, |v|), identical NaN positions, bit equality required;
+     1e-5 * max(1, |v|), identical NaN positions, bit equality required.
+     region_stats: float32 and float64 maps with ties, NaN, ±inf and -0.0,
+     masks of every integer, boolean and floating type, 1, 2, 12 and 128
+     labels, every bounds rule, none and one voxel; counts and medians
+     equal to the plain version's, mean and std within 1e-12 (float64 sums
+     in another order);
   4. monoexponential relaxometry (the first slice's main path): four
      512x512x64 echo volumes on the card (16.7M voxels, noisy data made
      from seed 0) through MonoExponentialFit(bounds=(0, 100),
-     tc0="polyfit").fit and the T2 map's regional metrics; the kernel's
-     launch count over that run; scipy parity of the map on 2,000 voxels
+     tc0="polyfit").fit and the T2 map's regional metrics; the kernels'
+     launch counts over that run (one monoexp_lm, one region_stats);
+     region_stats on the fitted map against its plain version on the card
+     and on the host, twice bit-equal, timed beside the plain version and
+     torch.quantile of the total (the yardstick, which the port never
+     calls), with its bound (map and mask read once); scipy parity of the
+     map on 2,000 voxels
      (relative RMSE of tc < 5e-3); kernel and plain version compared on
      every voxel with the tolerance above, and timed (CUDA events, median
      of 5 after a warm-up); the registers and spill bytes of the kernel's
@@ -142,7 +152,8 @@ Phases (any failure raises and exits non-zero):
      from_dicom, segment, generate_t2_map,
      largest_cc, each set_mask and each tissue's analytics, the D2H bytes,
      the peak memory, and a "qdess_knee" JSON line before the kernels line.
-     No hand kernel runs on this path.
+     One hand kernel runs on this path: region_stats, once, for the
+     meniscus' rows (metric_rows of the card map).
  12. the registered scans: CubeQuant at config 3's own 192x192x48 (phase
      15 runs it at 384x384x160 through the command line) from a DICOM
      series to femoral cartilage's T1ρ rows: bench.py's config 3 recipe
@@ -453,7 +464,7 @@ def device_ms(fn, reps, name):
     return float(np.median(us)) / 1e3, counts
 
 
-KERNEL_WRAPPERS = ("monoexp_lm", "biexp_lm", "generic_lm", "warp_grid")
+KERNEL_WRAPPERS = ("monoexp_lm", "biexp_lm", "generic_lm", "warp_grid", "region_stats")
 
 
 def reset_launches():
@@ -580,7 +591,8 @@ def build_all():
 
     jobs = {"monoexp_lm.cu": lambda: _build.load_library("monoexp_lm"),
             "biexp_lm.cu": lambda: _build.load_library("biexp_lm"),
-            "warp_grid.cu": lambda: _build.load_library("warp_grid")}
+            "warp_grid.cu": lambda: _build.load_library("warp_grid"),
+            "region_stats.cu": lambda: _build.load_library("region_stats")}
     host = {f"{name}.cpp (g++)": lambda n=name: _build.load_host_library(n)
             for name in ("dosma_io", "dosma_codecs")}
     for name, (model, nparams, _, _) in GENERIC_MODELS.items():
@@ -868,6 +880,70 @@ def small_cases(dev):
         run("generic_lm", name, generic_lm, generic_lm_reference, (program, x, y, p0), kw,
             Y.shape)
     worst["warp_grid"] = warp_small(dev)
+    worst["region_stats"] = region_small(dev)
+    return worst
+
+
+def compare_region_stats(name, got, ref):
+    """Counts and medians bit-equal (the same elements as a sort), NaN rows
+    where the plain version has them; mean and std within 1e-12 relative
+    (float64 sums in another order). Returns the largest relative |Δ|."""
+    got, ref = got.cpu(), ref.cpu()
+    check(torch.equal(got[:, 0], ref[:, 0]), f"region_stats {name}: counts {got[:, 0]} "
+          f"against {ref[:, 0]}")
+    check(torch.equal(got[:, 3].isnan(), ref[:, 3].isnan())
+          and torch.equal(got[:, 3].nan_to_num(), ref[:, 3].nan_to_num()),
+          f"region_stats {name}: medians {got[:, 3].tolist()} against {ref[:, 3].tolist()}")
+    scale = ref[:, 1:3].abs().nan_to_num().clamp_min(1e-300)
+    rel = float(((got[:, 1:3] - ref[:, 1:3]).abs() / scale).nan_to_num().max())
+    check(rel <= 1e-12 and torch.equal(got[:, 1:3].isnan(), ref[:, 1:3].isnan()),
+          f"region_stats {name}: mean and std rel {rel} against 1e-12")
+    return rel
+
+
+def region_small(dev):
+    """region_stats against its plain version at small shapes: float32 and
+    float64 maps with ties, NaN, ±inf and ±0; masks of every integer, boolean
+    and floating type; 0, 1, 2, 12 and 128 labels (shared and global
+    histograms), each bounds rule; no voxel and one voxel."""
+    from dosma_tpu_torch.ops.analytics import region_stats, region_stats_reference
+
+    cases = [(0, torch.float32, torch.uint8, [1], None, "right"),
+             (1, torch.float32, torch.uint8, [1], None, "right"),
+             (2, torch.float64, torch.uint8, [1], None, "right")]
+    mask_types = (torch.bool, torch.uint8, torch.int16, torch.uint16, torch.int32,
+                  torch.uint32, torch.int64, torch.float32, torch.float64)
+    for i, mask_type in enumerate(mask_types):
+        for map_type in (torch.float32, torch.float64):
+            closed = ("right", "left", "both", "neither")[i % 4]
+            bounds = (None, (0, 100), (-20, 50), (0, float("inf")))[i % 4]
+            cases.append((40_001 + i, map_type, mask_type, [1, 2], bounds, closed))
+    cases += [(100_003, torch.float32, torch.uint8, list(range(1, 13)), (0, float("inf")),
+               "neither"),
+              (60_001, torch.float32, torch.int32, list(range(1, 129)), None, "right")]
+    worst = 0.0
+    rs = np.random.RandomState(4)
+    for n, map_type, mask_type, labels, bounds, closed in cases:
+        v = rs.randn(n) * 20 + 30
+        tied = rs.rand(n) < 0.8
+        v[tied] = np.round(v[tied], 1)
+        for special, share in ((np.nan, 0.02), (np.inf, 0.01), (-np.inf, 0.01), (-0.0, 0.02)):
+            v[rs.rand(n) < share] = special
+        m = rs.randint(0, max(labels) + 2, n)
+        values = torch.from_numpy(v).to(map_type)
+        mask = torch.from_numpy(m > 0 if mask_type == torch.bool else m).to(mask_type)
+        ref = region_stats_reference(values, mask, labels, bounds, closed)
+        got = region_stats(values.to(dev), mask.to(dev), labels, bounds, closed)
+        torch.cuda.synchronize()
+        name = (f"n={n} {str(map_type)[6:]} map, {str(mask_type)[6:]} mask, {len(labels)} "
+                f"labels, bounds {bounds} {closed}")
+        rel = compare_region_stats(name, got, ref)
+        whole = region_stats(values.to(dev), None, [], bounds, closed)
+        rel = max(rel, compare_region_stats(name + ", no mask", whole,
+                                            region_stats_reference(values, None, [], bounds,
+                                                                   closed)))
+        worst = max(worst, rel)
+        print(f"compare region_stats {name}: counts and medians equal, mean/std rel {rel:.3g}")
     return worst
 
 
@@ -929,7 +1005,7 @@ def phase_monoexp(dt, dev, card):
     counts = launch_counts()
     launches = counts["monoexp_lm"]
 
-    expect_launches("monoexp", monoexp_lm=1)
+    expect_launches("monoexp", monoexp_lm=1, region_stats=1)
     check(isinstance(tc_map.A, torch.Tensor) and tc_map.A.is_cuda, "tc map is not on the card")
     check(tc_map.shape == SHAPE and r2_map.shape == SHAPE, f"map shape {tc_map.shape}")
     check(bool(torch.isfinite(tc_map.A).all()), "tc map has non-finite values")
@@ -1006,7 +1082,56 @@ def phase_monoexp(dt, dev, card):
     regs, spill = lm_registers("monoexp_lm", "monoexp_lm_kernel", T, True)
     return {"launches": launches, "max_abs_err": max(max_err, max_err_r2),
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "iterations": iters, "registers": regs, "spill_bytes": spill}
+            "library_ms": None, "iterations": iters, "registers": regs, "spill_bytes": spill,
+            "region_stats": region_stats_config1(tc_map.A, mask.A, labels, counts)}
+
+
+def region_stats_config1(tc, mask, labels, counts):
+    """The region_stats kernel chain at config1's shapes (the fitted map,
+    16.7M voxels, two labels over 11.1M): against its plain version on the
+    card and on the host, twice bit-equal, timed (CUDA events, median of 5)
+    beside its plain version and torch.quantile of the total's values (the
+    yardstick, which the port never calls); the bound is the map and the
+    mask read once (and the three passes a float32 map takes)."""
+    from dosma_tpu_torch.ops.analytics import region_stats, region_stats_reference
+
+    args = (tc, mask, list(labels), None, "right")  # as T2.metric_rows(mask, labels) calls it
+    got = region_stats(*args)
+    again = region_stats(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+          "region_stats: two calls differ")
+    rel_card = compare_region_stats("config1 (plain on the card)", got,
+                                    region_stats_reference(*args))
+    host = (tc.cpu(), mask.cpu(), *args[2:])
+    t0 = time.perf_counter()
+    ref_host = region_stats_reference(*host)
+    host_plain_s = time.perf_counter() - t0
+    rel_host = compare_region_stats("config1 (plain on the host)", got, ref_host)
+    total = tc.reshape(-1)[(mask.reshape(-1) > 0) & torch.isfinite(tc.reshape(-1))]
+    kernel_ms, kernel_all = time_ms(lambda: region_stats(*args))
+    plain_ms, plain_all = time_ms(lambda: region_stats_reference(*args))
+    library_ms, library_all = time_ms(lambda: torch.quantile(total, 0.5))
+    check(float(torch.quantile(total.double(), 0.5)) == float(got[-1, 3]),
+          "region_stats: the total's median differs from torch.quantile's")
+    n = tc.numel()
+    nbytes = n * (tc.element_size() + mask.element_size())
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"region_stats at {tuple(tc.shape)} ({n} voxels, {int(got[-1, 0])} valid in the mask), "
+          f"{len(labels)} labels: counts and medians equal to the plain version's on the card and "
+          f"on the host, mean/std rel {max(rel_card, rel_host):.3g}; two calls bit-equal")
+    print(f"  kernel chain: {kernel_ms:.4f} ms runs {[round(t, 4) for t in kernel_all]}; bound "
+          f"{b_ms:.4f} ms (map and mask read once, {nbytes} bytes), three passes "
+          f"{3 * b_ms:.4f} ms")
+    print(f"  plain version on the card: {plain_ms:.4f} ms runs "
+          f"{[round(t, 4) for t in plain_all]}; on the host: {host_plain_s * 1e3:.1f} ms "
+          f"({torch.get_num_threads()} threads)")
+    print(f"  torch.quantile(total, 0.5) (yardstick): {library_ms:.4f} ms runs "
+          f"{[round(t, 4) for t in library_all]}")
+    return {"launches": counts["region_stats"], "max_abs_err": max(rel_card, rel_host),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "three_pass_bound_ms": 3 * b_ms,
+            "host_plain_ms": host_plain_s * 1e3}
 
 
 # ----------------------------------------------------------------------
@@ -2368,7 +2493,8 @@ def phase_qdess_knee(dt, dev, card, model=None, share=None):
         with utilization_sampler() as util:
             wall_s, _ = median_wall(dir_to_rows, reps=1)
         peak = torch.cuda.max_memory_allocated()
-        launches = expect_launches("qDESS knee")  # no hand kernel on this path
+        # region_stats: the meniscus' rows of the card map
+        launches = expect_launches("qDESS knee", region_stats=1)
         read_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, num_workers=8), reps=1)
         load_s, _ = median_wall(lambda: dt.QDess.from_dicom(series_dir, to_device=True,
                                                             num_workers=8), reps=1)
@@ -3996,10 +4122,12 @@ def later_phases(dt, dev, card, worst, mono, biexp, generic, reg, knee, seg, seg
         "generic_lm": ("dosma_tpu_torch/csrc/generic_lm.cuh",
                        "dosma_tpu/ops/generic_lm_pallas.py:52"),
         "warp_grid": ("dosma_tpu_torch/csrc/warp_grid.cu", "dosma_tpu/ops/warp_pallas.py:116"),
+        "region_stats": ("dosma_tpu_torch/csrc/region_stats.cu",
+                         "none (dosma_tpu/ops/analytics.py and to_metrics reduce with jnp/numpy)"),
     }
     kernels = []
     for name, res in (("monoexp_lm", mono), ("biexp_lm", biexp), ("generic_lm", generic),
-                      ("warp_grid", warp)):
+                      ("warp_grid", warp), ("region_stats", mono.pop("region_stats"))):
         source, replaces = sources[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": res["launches"],

@@ -9,10 +9,10 @@ Regional metrics (finite and bounds mask, per-label Mean / Std / Median /
 rows from :meth:`QuantitativeValue.metric_rows`;
 :meth:`QuantitativeValue.to_metrics` wraps them in a pandas DataFrame
 (pandas is imported there only). The statistics are torch float64
-reductions on the map's device (a host map's on the CPU): a mask's voxels
-are gathered there once (:func:`dosma_tpu_torch.ops.analytics.
-gather_voxels`) and split per label there, and only the statistics cross
-to the host, unless ``fns`` need each region's values.
+reductions on the map's device (a host map's on the CPU), every region's
+at once (:func:`dosma_tpu_torch.ops.analytics.region_stats`: a kernel
+chain on a card, its plain version on the CPU), and only the statistics
+cross to the host, in one read, unless ``fns`` need each region's values.
 """
 
 from __future__ import annotations
@@ -122,32 +122,31 @@ class QuantitativeValue:
         reduction of ``fns``, which receives the region's values as a host
         array.
         """
-        from dosma_tpu_torch.ops.analytics import gather_voxels, summary, volume_tensor
+        from dosma_tpu_torch.ops.analytics import region_stats, region_values, volume_tensor
 
         with annotate("dosma.rows"):
             with annotate("dosma.rows.gather"):
                 volume = volume_tensor(self.volumetric_map.volume)
+                mask_t = None
                 if mask is None:
-                    regions = [("total", volume[torch.isfinite(volume)
-                                                & self._bounds_mask(volume, bounds, closed)])]
+                    labels = {}
                 else:
-                    # One gather of every voxel with mask > 0; validity depends on
-                    # the value alone, so it is tested on the gathered vector.
                     mask_t = as_tensor(mask.reformat(self.volumetric_map.orientation).volume,
-                                       volume.device).reshape(-1)
-                    flat = torch.nonzero(mask_t > 0).squeeze(1)
-                    region_labels = mask_t[flat]
+                                       volume.device)
                     if labels is None:
                         labels = {int(v): f"label_{int(v)}"
-                                  for v in torch.unique(region_labels).tolist()}
-                    values = gather_voxels(volume, flat)
-                    valid = torch.isfinite(values) & self._bounds_mask(values, bounds, closed)
-                    values, region_labels = values[valid], region_labels[valid]
-                    regions = [(name, values[region_labels == label])
-                               for label, name in labels.items()]
-                    regions.append(("total", values))
+                                  for v in torch.unique(mask_t[mask_t > 0]).tolist()}
+                stats = region_stats(volume, mask_t, list(labels), bounds, closed)
+                values = region_values(volume, mask_t, list(labels), bounds, closed) if fns else ()
             with annotate("dosma.rows.summary"):
-                return [{"Category": name, **summary(values, fns)} for name, values in regions]
+                rows = [{"Category": name, "Mean": mean, "Std": std, "Median": median,
+                         "# Voxels": int(n)}
+                        for name, (n, mean, std, median) in zip([*labels.values(), "total"],
+                                                                stats.tolist())]
+                for row, region in zip(rows, values):
+                    host = region.cpu().numpy()
+                    row.update({fname: fn(host) for fname, fn in fns.items()})
+                return rows
 
     def to_metrics(
         self,
@@ -161,21 +160,6 @@ class QuantitativeValue:
         import pandas as pd
 
         return pd.DataFrame(self.metric_rows(mask, labels, bounds, closed, fns))
-
-    @staticmethod
-    def _bounds_mask(volume: torch.Tensor, bounds, closed: str) -> torch.Tensor:
-        if not bounds:
-            return torch.ones(volume.shape, dtype=torch.bool, device=volume.device)
-        if len(bounds) != 2:
-            raise ValueError(f"`bounds` must be (lower, upper), got {bounds}")
-        lb, ub = bounds
-        if lb > ub:
-            raise ValueError(f"lower:{lb}, upper: {ub}")
-        if closed not in ("right", "left", "both", "neither"):
-            raise ValueError(f"Invalid `closed`={closed!r}")
-        above = volume >= lb if closed in ("left", "both") else volume > lb
-        below = volume <= ub if closed in ("right", "both") else volume < ub
-        return above & below
 
     # ------------------------------------------------------------------
     @staticmethod

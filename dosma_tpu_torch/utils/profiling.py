@@ -20,8 +20,9 @@ one's :func:`trace` included) beside the kernels and copies of the card:
   ``dosma.fit.maps`` (reshape, the host copy back, headers, the volumes);
   ``dosma.fit.scan`` around it in a scan's map method;
 - ``dosma.rows`` (``QuantitativeValue.metric_rows``) and its stages
-  ``dosma.rows.gather`` (the mask's crossing, the gather, validity and
-  per-label selection) and ``dosma.rows.summary`` (the statistics);
+  ``dosma.rows.gather`` (the mask's crossing, ``region_stats``' launches,
+  and the per-region gathers when ``fns`` are given) and
+  ``dosma.rows.summary`` (the statistics read back, once, and the rows);
 - ``dosma.register.level`` (one pyramid level of a matrix stage), with
   ``dosma.register.prep`` (smoothing, draws, the fixed side's samples) and
   ``dosma.register.adam`` (the level's Adam loop), and
@@ -31,7 +32,9 @@ Counters: ``h2d.bytes`` (bytes of host tensors or arrays copied to a card
 by :func:`dosma_tpu_torch.core.device.as_tensor`), ``adam.iterations``
 (iterations of the matrix stages' Adam loops), and the hand-written
 kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
-``generic_lm.launches`` and ``warp_grid.launches``.
+``generic_lm.launches``, ``warp_grid.launches`` and
+``region_stats.launches`` (one a call of the region statistics' kernel
+chain, ``ops/analytics.py::region_stats`` on a card's map).
 """
 
 from __future__ import annotations

@@ -507,3 +507,110 @@ def test_viewer_copies_a_card_volume_once(card, monkeypatch):
         viewer._on_scroll(Up())
     assert copies == [arr.size]
     np.testing.assert_array_equal(viewer._volume_arr, arr)
+
+
+def _region_inputs(n, map_dtype, mask_dtype, nlabels, seed):
+    """A map with heavy ties (most values rounded to 1 decimal), NaN, ±inf,
+    ±0 and negative values, and a mask of 0 .. nlabels + 1 (the last value
+    listed by no caller), as tensors on the CPU."""
+    rs = np.random.RandomState(seed)
+    values = rs.randn(n) * 20 + 30
+    tied = rs.rand(n) < 0.8
+    values[tied] = np.round(values[tied], 1)
+    for special, share in ((np.nan, 0.02), (np.inf, 0.01), (-np.inf, 0.01), (0.0, 0.02),
+                           (-0.0, 0.02)):
+        values[rs.rand(n) < share] = special
+    mask = rs.randint(0, nlabels + 2, n)
+    if mask_dtype == torch.bool:
+        mask = mask > 0
+    return (torch.from_numpy(values).to(map_dtype),
+            torch.from_numpy(mask.astype(np.int64)).to(mask_dtype))
+
+
+def _assert_stats_agree(got, want):
+    """Counts and medians bit for bit (the same elements); mean and std to
+    1e-12 relative: their float64 sums run in another order."""
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert torch.equal(got[:, 3].isnan(), want[:, 3].isnan())
+    assert torch.equal(got[:, 3].nan_to_num(), want[:, 3].nan_to_num())
+    torch.testing.assert_close(got[:, 1:3], want[:, 1:3], rtol=1e-12, atol=1e-12 * 100,
+                               equal_nan=True)
+
+
+_REGION_CASES = {
+    # name: (voxels, map dtype, mask dtype, labels, bounds, closed)
+    "f32_u8_two_labels": (300_001, torch.float32, torch.uint8, [1, 2], (0, 100), "right"),
+    "f64_u8_two_labels": (300_001, torch.float64, torch.uint8, [1, 2], (0, 100), "right"),
+    "f32_bool": (70_000, torch.float32, torch.bool, [1], None, "right"),
+    "f32_i16_left": (70_000, torch.float32, torch.int16, [2, 1, 9], (-10, 50), "left"),
+    "f32_u16_both": (70_000, torch.float32, torch.uint16, [1, 3], (0, 50), "both"),
+    "f32_u32_neither": (70_000, torch.float32, torch.uint32, [3], (0, float("inf")), "neither"),
+    "f32_i32": (70_000, torch.float32, torch.int32, [1, 2, 3, 4, 5], None, "right"),
+    "f64_i64": (70_000, torch.float64, torch.int64, [4, 2], (-1e3, 1e3), "both"),
+    "f32_f32_mask": (70_000, torch.float32, torch.float32, [1, 2], None, "right"),
+    "f64_f64_mask": (70_000, torch.float64, torch.float64, [2], (0, 60), "right"),
+    "meniscus_like": (200_000, torch.float32, torch.uint8, list(range(1, 13)), (0, float("inf")),
+                      "neither"),
+    "most_labels": (50_000, torch.float32, torch.int32, list(range(1, 129)), None, "right"),
+    "one_voxel": (1, torch.float32, torch.uint8, [1], None, "right"),
+    "no_voxel": (0, torch.float32, torch.uint8, [1], None, "right"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_REGION_CASES))
+def test_region_stats_kernel_matches_its_plain_version(name, card):
+    from dosma_tpu_torch.ops.analytics import region_stats, region_stats_reference
+
+    n, map_dtype, mask_dtype, labels, bounds, closed = _REGION_CASES[name]
+    values, mask = _region_inputs(n, map_dtype, mask_dtype, max(*labels, 3), seed=n)
+    want = region_stats_reference(values, mask, labels, bounds, closed)
+    got = region_stats(values.to(card), mask.to(card), labels, bounds, closed)
+    assert got.device == card and got.shape == (len(labels) + 1, 4)
+    _assert_stats_agree(got, want)
+    no_mask = region_stats(values.to(card), None, [], bounds, closed)
+    _assert_stats_agree(no_mask, region_stats_reference(values, None, [], bounds, closed))
+
+
+@pytest.mark.cuda
+def test_region_stats_twice_gives_the_same_bits(card):
+    """No floating-point atomics: the partial sums reduce in a fixed order."""
+    from dosma_tpu_torch.ops.analytics import region_stats
+
+    values, mask = _region_inputs(2_000_003, torch.float32, torch.uint8, 3, seed=5)
+    values, mask = values.to(card), mask.to(card)
+    first = region_stats(values, mask, [1, 2, 3], (0, 100))
+    second = region_stats(values, mask, [1, 2, 3], (0, 100))
+    assert torch.equal(first.view(torch.int64), second.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_region_stats_refuses_more_labels_than_the_kernel_holds(card):
+    from dosma_tpu_torch.ops.analytics import region_stats
+
+    values, mask = _region_inputs(1000, torch.float32, torch.int32, 3, seed=1)
+    with pytest.raises(ValueError, match="at most 128 labels"):
+        region_stats(values.to(card), mask.to(card), list(range(1, 130)))
+
+
+@pytest.mark.cuda
+def test_metric_rows_launch_the_kernel_once_on_a_card_map(card):
+    """One region_stats launch per metric_rows of a card map, none for a
+    host map; the rows of the two are the same (fns from the host values)."""
+    values, mask = _region_inputs(64 * 48 * 6, torch.float32, torch.uint8, 2, seed=3)
+    affine = np.eye(4)
+    host_map = dt.MedicalVolume(values.reshape(64, 48, 6).numpy(), affine)
+    mask_mv = dt.MedicalVolume(mask.reshape(64, 48, 6).numpy(), affine)
+    fns = {"Max": lambda v: float(np.max(v)) if v.size else np.nan}
+    before = counters["region_stats.launches"]
+    host_rows = dt.T2(host_map).metric_rows(mask_mv, {1: "a", 2: "b"}, (0, 100), fns=fns)
+    assert counters["region_stats.launches"] == before
+    card_rows = dt.T2(host_map.to(card)).metric_rows(mask_mv, {1: "a", 2: "b"}, (0, 100),
+                                                     fns=fns)
+    assert counters["region_stats.launches"] == before + 1
+    for got, want in zip(card_rows, host_rows):
+        assert got["Category"] == want["Category"] and got["# Voxels"] == want["# Voxels"]
+        assert got["Median"] == want["Median"] and got["Max"] == want["Max"]
+        np.testing.assert_allclose([got["Mean"], got["Std"]], [want["Mean"], want["Std"]],
+                                   rtol=1e-12)

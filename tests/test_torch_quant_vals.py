@@ -220,3 +220,104 @@ def test_gathered_rows_equal_the_host_rows_bit_for_bit(name):
         rows = {b: tqv.T2(_port_map(arr, b)).metric_rows(mask, labels, bounds, closed, fns)
                 for b in ("numpy", "tensor")}
         _same_rows(rows["tensor"], rows["numpy"])
+
+
+def _sorted_rows(qv, mask, labels, bounds, closed):
+    """The rows as the port computed them before region_stats: each
+    region's values sorted for the median (analytics.summary)."""
+    from dosma_tpu_torch.ops.analytics import region_values, summary, volume_tensor
+
+    volume = volume_tensor(qv.volumetric_map.volume)
+    mask_t = torch.as_tensor(np.asarray(mask.A))
+    names = [*labels.values(), "total"]
+    regions = region_values(volume, mask_t, list(labels), bounds, closed)
+    return [{"Category": n, **summary(v)} for n, v in zip(names, regions)]
+
+
+def _special_map(seed, dtype=np.float32, ties=False):
+    rs = np.random.RandomState(seed)
+    arr = rs.randn(16, 16, 6) * 40 + 10
+    if ties:
+        arr = np.round(rs.rand(16, 16, 6) * 3, 1)
+    flat = arr.reshape(-1)
+    flat[::19] = np.nan
+    flat[2::41] = np.inf
+    flat[4::43] = -np.inf
+    flat[6::17] = 0.0
+    flat[8::23] = -0.0
+    return arr.astype(dtype)
+
+
+def _categorical_mask(nlabels, dtype=np.uint8, seed=0):
+    return np.random.RandomState(seed).randint(0, nlabels + 1, (16, 16, 6)).astype(dtype)
+
+
+# name: (map, mask, labels, bounds, closed)
+_ROW_CASES = {
+    "ties": (lambda: _special_map(1, ties=True), lambda: _categorical_mask(2), {1: "a", 2: "b"},
+             None, "right"),
+    "negatives_both": (lambda: _special_map(2), lambda: _mask(), {1: "f", 2: "t", 5: "p"},
+                       (-50, 50), "both"),
+    "negatives_neither": (lambda: _special_map(3), lambda: _mask(np.int16), {2: "t"}, (-50, 0),
+                          "neither"),
+    "absent_label": (lambda: _special_map(4), lambda: _categorical_mask(3),
+                     {1: "a", 2: "b", 9: "absent"}, (0, 100), "left"),
+    "meniscus_like": (lambda: np.abs(_special_map(5)), lambda: _categorical_mask(12),
+                      {i: f"r{i}" for i in range(1, 13)}, (0, np.inf), "neither"),
+    "float64_map": (lambda: _special_map(6, np.float64), lambda: _mask(np.int64),
+                    {1: "f", 2: "t"}, (0, 100), "right"),
+    "float_mask": (lambda: _special_map(7), lambda: _mask(np.float32), {1: "f", 5: "p"}, None,
+                   "right"),
+    "bool_mask": (lambda: _special_map(8), lambda: _mask() > 0, {1: "in"}, (0, 100), "right"),
+}
+
+
+@pytest.mark.parametrize("backing", ["numpy", "tensor"])
+@pytest.mark.parametrize("name", list(_ROW_CASES))
+def test_metric_rows_match_the_sorted_rows_and_jax(name, backing):
+    """Counts and medians equal to those of the sorted regions (the same
+    elements), mean and std within 1e-12 of them (float64 sums in another
+    order), and the JAX package's DataFrame as in the tests above."""
+    make_map, make_mask, labels, bounds, closed = _ROW_CASES[name]
+    arr, m = make_map(), make_mask()
+    qv = tqv.T2(_port_map(arr, backing))
+    mask = dt.MedicalVolume(m, _AFFINE)
+    rows = qv.metric_rows(mask, labels, bounds, closed)
+    want = _sorted_rows(qv, mask, labels, bounds, closed)
+    assert [r["Category"] for r in rows] == [r["Category"] for r in want]
+    for got, ref in zip(rows, want):
+        assert got["# Voxels"] == ref["# Voxels"]
+        if not ref["# Voxels"]:
+            assert np.isnan([got["Mean"], got["Std"], got["Median"]]).all()
+            continue
+        assert got["Median"] == ref["Median"]
+        np.testing.assert_allclose([got["Mean"], got["Std"]], [ref["Mean"], ref["Std"]],
+                                   rtol=1e-12, atol=1e-12 * max(1.0, abs(ref["Mean"])))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        jref = jqv.T2(dosma_tpu.MedicalVolume(arr, _AFFINE)).to_metrics(
+            dosma_tpu.MedicalVolume(m, _AFFINE), labels=labels, bounds=bounds, closed=closed)
+    import pandas as pd
+
+    _assert_frames_equal(pd.DataFrame(rows), jref)
+
+
+@pytest.mark.parametrize("backing", ["numpy", "tensor"])
+def test_labels_none_keeps_a_label_whose_values_are_all_nan(backing):
+    """labels=None lists every label of the mask (validity aside): a label
+    whose voxels are all NaN gets a row of 0 voxels, and the total leaves
+    them out."""
+    arr = _special_map(9)
+    m = _categorical_mask(3)
+    arr[m == 2] = np.nan
+    rows = tqv.T2(_port_map(arr, backing)).metric_rows(dt.MedicalVolume(m, _AFFINE))
+    assert [r["Category"] for r in rows] == ["label_1", "label_2", "label_3", "total"]
+    assert rows[1]["# Voxels"] == 0 and np.isnan(rows[1]["Median"])
+    assert rows[3]["# Voxels"] == rows[0]["# Voxels"] + rows[2]["# Voxels"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        jref = jqv.T2(dosma_tpu.MedicalVolume(arr, _AFFINE)).to_metrics(
+            dosma_tpu.MedicalVolume(m, _AFFINE))
+    import pandas as pd
+
+    _assert_frames_equal(pd.DataFrame(rows), jref)
