@@ -276,6 +276,8 @@ import time
 import numpy as np
 import torch
 
+from qmri_bench.counts_unet import slice_flops
+
 SHAPE = (512, 512, 64)
 ECHO_TIMES = np.array([10.0, 20.0, 30.0, 40.0], np.float32)
 NOISE_SIGMA = 0.005
@@ -1947,26 +1949,6 @@ def he_normal_unet_params(rs, num_classes, features, in_channels=1):
     return params
 
 
-def unet_flops(h, w, features, num_classes, in_channels=1):
-    """Multiply-adds x 2 of the U-Net's convolutions on one h x w slice
-    (a transpose convolution: 9 products per input pixel, input and output
-    channel); the elementwise work is not counted."""
-    flops, sizes, cin = 0, [], in_channels
-    for d, f in enumerate(features):
-        flops += 2 * 9 * (cin + f) * f * h * w
-        sizes.append((h, w))
-        cin = f
-        if d < len(features) - 1:
-            stride = 2 if h % 2 == 0 else 3
-            h, w = h // stride, w // stride
-    for d in range(len(features) - 2, -1, -1):
-        f = features[d]
-        flops += 2 * 9 * features[d + 1] * f * h * w
-        h, w = sizes[d]
-        flops += 2 * 9 * (2 * f + f) * f * h * w
-    return flops + 2 * features[0] * num_classes * h * w
-
-
 def d2h_bytes(fn):
     """(bytes, copies) the card copied to the host while ``fn`` ran, from
     torch.profiler's memcpy events."""
@@ -2149,7 +2131,7 @@ def phase_segmentation(dt, dev, card):
         t0 = time.perf_counter()
         unpack(packed_host, KNEE_SHAPE[1], 4, 4)
         unpack_s = time.perf_counter() - t0
-        flops = unet_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 4) * S
+        flops = slice_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 4) * S
         bound_f32 = flops / PEAK_F32_PER_S * 1e3
         bound_bf16 = flops / PEAK_BF16_PER_S * 1e3
 
@@ -3328,7 +3310,7 @@ def phase_parallel_train(dt, dev, card):
         peak = torch.cuda.max_memory_allocated()
         check(np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}")
         warm_ms = statistics.median(step_ms[1:])
-        flops = 3 * unet_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 1) * TRAIN_BATCH
+        flops = 3 * slice_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 1) * TRAIN_BATCH
         bound_ms = flops / PEAK_F32_PER_S * 1e3
         n_params = sum(p.numel() for p in trainer.params.values())
         print(f"phase 14 training on {card}: SegTrainer(FEATURES, num_classes=1, "

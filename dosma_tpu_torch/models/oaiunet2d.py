@@ -25,6 +25,7 @@ from dosma_tpu_torch.core.orientation import SAGITTAL
 from dosma_tpu_torch.defaults import preferences
 from dosma_tpu_torch.models.seg_model import TorchSegModel, whiten_stats, whiten_volume
 from dosma_tpu_torch.models.unet2d import Unet2D
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = ["OAIUnet2D", "IWOAIOAIUnet2D", "IWOAIOAIUnet2DNormalized"]
 
@@ -55,11 +56,14 @@ class OAIUnet2D(TorchSegModel):
     def generate_mask(self, volume: MedicalVolume):
         """Sagittal reformat → batched inference → threshold 0.5 → reformat
         back to the input's orientation."""
-        vol_copy = _staged(volume).reformat(SAGITTAL)
-        mask = self._predict_slices(vol_copy)  # (S, H, W, 1)
+        with annotate("dosma.segment"):
+            with annotate("dosma.segment.stage"):
+                vol_copy = _staged(volume).reformat(SAGITTAL)
+            mask = self._predict_slices(vol_copy)  # (S, H, W, 1)
 
-        vol_copy.volume = np.transpose(np.squeeze(mask, axis=-1), (1, 2, 0))
-        vol_copy.reformat(volume.orientation, inplace=True)
+            with annotate("dosma.segment.masks"):
+                vol_copy.volume = np.transpose(np.squeeze(mask, axis=-1), (1, 2, 0))
+                vol_copy.reformat(volume.orientation, inplace=True)
         return vol_copy
 
     def __preprocess_volume__(self, volume: np.ndarray):
@@ -90,9 +94,12 @@ class IWOAIOAIUnet2D(OAIUnet2D):
         return Unet2D(input_shape, num_classes=4, precision=preferences.segmentation_precision)
 
     def generate_mask(self, volume: MedicalVolume):
-        vol_copy = _staged(volume).reformat(SAGITTAL)
-        mask = self._predict_slices(vol_copy)  # (S, H, W, C)
-        return _category_volumes(vol_copy, mask, self.CATEGORIES, volume.orientation)
+        with annotate("dosma.segment"):
+            with annotate("dosma.segment.stage"):
+                vol_copy = _staged(volume).reformat(SAGITTAL)
+            mask = self._predict_slices(vol_copy)  # (S, H, W, C)
+            with annotate("dosma.segment.masks"):
+                return _category_volumes(vol_copy, mask, self.CATEGORIES, volume.orientation)
 
     def __preprocess_volume__(self, volume: np.ndarray):
         return volume

@@ -17,6 +17,7 @@ import torch
 from dosma_tpu_torch.core.device import as_tensor, compute_device
 from dosma_tpu_torch.core.med_volume import MedicalVolume
 from dosma_tpu_torch.defaults import preferences
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = ["SegModel", "TorchSegModel", "KerasSegModel", "whiten_volume", "whiten_stats"]
 
@@ -95,8 +96,9 @@ class TorchSegModel(SegModel):
                 vol, batch_size=self.batch_size, threshold=self.sigmoid_threshold,
                 whiten=eps is not None, whiten_eps=eps or 0.0,
             )
-        stats = self.__whiten_stats__(vol)
-        mean, std = stats if stats is not None else (0.0, 1.0)
+        with annotate("dosma.segment.stage"):
+            stats = self.__whiten_stats__(vol)
+            mean, std = stats if stats is not None else (0.0, 1.0)
         return model.predict_mask(
             vol.permute(2, 0, 1)[..., None], batch_size=self.batch_size,
             threshold=self.sigmoid_threshold, mean=mean, std=std,

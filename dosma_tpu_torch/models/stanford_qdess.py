@@ -16,6 +16,7 @@ from dosma_tpu_torch.defaults import preferences
 from dosma_tpu_torch.models.oaiunet2d import _category_volumes, _staged
 from dosma_tpu_torch.models.seg_model import TorchSegModel, whiten_stats, whiten_volume
 from dosma_tpu_torch.models.unet2d import Unet2D
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = ["StanfordQDessUNet2D"]
 
@@ -36,14 +37,17 @@ class StanfordQDessUNet2D(TorchSegModel):
         if ndim not in (3, 4):
             raise ValueError("`volume` must either be 3D or 4D")
 
-        vol_copy = _staged(volume)
-        if ndim == 4:
-            # Squared as a float (** 2.0): integer echoes would overflow.
-            vol_copy = np.sqrt(np.sum(vol_copy ** 2.0, axis=-1))
-        vol_copy = vol_copy.reformat(SAGITTAL)
+        with annotate("dosma.segment"):
+            with annotate("dosma.segment.stage"):
+                vol_copy = _staged(volume)
+                if ndim == 4:
+                    # Squared as a float (** 2.0): integer echoes would overflow.
+                    vol_copy = np.sqrt(np.sum(vol_copy ** 2.0, axis=-1))
+                vol_copy = vol_copy.reformat(SAGITTAL)
 
-        mask = self._predict_slices(vol_copy)  # (S, H, W, 4)
-        return _category_volumes(vol_copy, mask, self.CATEGORIES, volume.orientation)
+            mask = self._predict_slices(vol_copy)  # (S, H, W, 4)
+            with annotate("dosma.segment.masks"):
+                return _category_volumes(vol_copy, mask, self.CATEGORIES, volume.orientation)
 
     def __preprocess_volume__(self, volume: np.ndarray):
         return whiten_volume(volume, eps=1e-8)

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dosma_tpu_torch.core.device import as_tensor, compute_device
+from dosma_tpu_torch.utils.profiling import annotate, count
 
 __all__ = [
     "DEPTH",
@@ -269,12 +270,21 @@ def _unpack(packed: np.ndarray, width: int, num_classes: int, bits_per_px: int) 
 def _run_batches(net, slices: torch.Tensor, mean, std, threshold, dtype, bits_per_px,
                  batch_size: int) -> np.ndarray:
     """Masks of ``slices`` ``(N, 1, H, W)``, batch by batch on their device;
-    the packed outputs are gathered there and cross to the host in one copy."""
-    outs = [
-        _forward_masks(net, slices[s : s + batch_size], mean, std, threshold, dtype, bits_per_px)
-        for s in range(0, slices.shape[0], batch_size)
-    ]
-    return (outs[0] if len(outs) == 1 else torch.cat(outs)).cpu().numpy()
+    the packed outputs are gathered there and cross to the host in one copy.
+    Counts the slices (``segment.slices``) and the bytes copied
+    (``segment.mask_bytes``)."""
+    with annotate("dosma.segment.forward"):
+        outs = [
+            _forward_masks(net, slices[s : s + batch_size], mean, std, threshold, dtype,
+                           bits_per_px)
+            for s in range(0, slices.shape[0], batch_size)
+        ]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    with annotate("dosma.segment.copy"):
+        host = out.cpu().numpy()
+    count("segment.slices", slices.shape[0])
+    count("segment.mask_bytes", host.nbytes)
+    return host
 
 
 def unet2d_segment_volume(net: UNet2D, vol: torch.Tensor, threshold: float, *,
@@ -288,12 +298,13 @@ def unet2d_segment_volume(net: UNet2D, vol: torch.Tensor, threshold: float, *,
     threshold and bit packing, and returns the packed bytes
     ``(S, H, W * bits_per_px // 8)`` on the host: one device-to-host copy.
     """
-    x = vol.to(torch.float32)
-    mean = std = None
-    if whiten:
-        mean = x.mean()
-        std = x.std(correction=0) + whiten_eps
-    slices = x.permute(2, 0, 1).contiguous()[:, None]  # (S, 1, H, W)
+    with annotate("dosma.segment.stage"):
+        x = vol.to(torch.float32)
+        mean = std = None
+        if whiten:
+            mean = x.mean()
+            std = x.std(correction=0) + whiten_eps
+        slices = x.permute(2, 0, 1).contiguous()[:, None]  # (S, 1, H, W)
     return _run_batches(net, slices, mean, std, threshold, dtype, bits_per_px, batch_size)
 
 
@@ -391,7 +402,8 @@ class Unet2D:
                 bits_per_px=bits, whiten=bool(whiten), whiten_eps=float(whiten_eps),
                 dtype=self.dtype,
             )
-        return _unpack(packed, vol.shape[1], self.num_classes, bits)
+        with annotate("dosma.segment.unpack"):
+            return _unpack(packed, vol.shape[1], self.num_classes, bits)
 
     def predict_mask(self, v, batch_size: int = 16, threshold: float = 0.5, mean=0.0,
                      std=1.0) -> np.ndarray:
@@ -414,4 +426,7 @@ class Unet2D:
         with torch.inference_mode(), cudnn_exact():
             out = _run_batches(self.network(x.device), x, mean, std, float(threshold),
                                self.dtype, bits, int(batch_size))
-        return out if bits is None else _unpack(out, x.shape[3], c, bits)
+        if bits is None:
+            return out
+        with annotate("dosma.segment.unpack"):
+            return _unpack(out, x.shape[3], c, bits)

@@ -26,11 +26,21 @@ one's :func:`trace` included) beside the kernels and copies of the card:
 - ``dosma.register.level`` (one pyramid level of a matrix stage), with
   ``dosma.register.prep`` (smoothing, draws, the fixed side's samples) and
   ``dosma.register.adam`` (the level's Adam loop), and
-  ``dosma.register.warp`` (a chain's final warp).
+  ``dosma.register.warp`` (a chain's final warp);
+- ``dosma.segment`` (every segmentation model's ``generate_mask``) and its
+  stages ``dosma.segment.stage`` (the volume to the device, the RSS of two
+  echoes, ``reformat`` to sagittal, and, entered again beside the
+  network, the cast and the whitening statistics), ``dosma.segment.forward``
+  (the batches through whitening, the network, the threshold and the
+  packing), ``dosma.segment.copy`` (the one device-to-host copy of the
+  masks), ``dosma.segment.unpack`` (the host's unpacking of the bits) and
+  ``dosma.segment.masks`` (the category volumes and the reformat back).
 
 Counters: ``h2d.bytes`` (bytes of host tensors or arrays copied to a card
 by :func:`dosma_tpu_torch.core.device.as_tensor`), ``adam.iterations``
-(iterations of the matrix stages' Adam loops), and the hand-written
+(iterations of the matrix stages' Adam loops), ``segment.slices`` (slices
+through a segmentation network) and ``segment.mask_bytes`` (bytes of its
+masks' copies to the host), and the hand-written
 kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
 ``generic_lm.launches``, ``warp_grid.launches`` and
 ``region_stats.launches`` (one a call of the region statistics' kernel

@@ -189,3 +189,52 @@ def test_count_adds_to_the_registry():
     tprof.count("test.count")
     tprof.count("test.count", 4)
     assert tprof.counters["test.count"] == before + 5
+
+
+SEGMENT_STAGES = {f"dosma.segment.{k}" for k in ("stage", "forward", "copy", "unpack", "masks")}
+
+
+def _segmenter(name, shape=(32, 32, 6)):
+    """Model ``name`` on narrow seeded weights, and a sagittal volume."""
+    from dosma_tpu_torch.models import unet2d
+
+    model = getattr(dt.models, name)(shape[:2] + (1,), None, force_weights=True)
+    classes = len(getattr(model, "CATEGORIES", [None]))
+    model.seg_model.params = unet2d.init_unet2d_params(
+        torch.Generator().manual_seed(0), num_classes=classes, features=[4, 8, 16])
+    model.batch_size = 4  # two batches, the second short
+    arr = (np.random.RandomState(1).rand(*shape) * 1000).astype(np.uint16)
+    return model, dt.MedicalVolume(arr, dt.to_affine(dt.SAGITTAL, (0.3, 0.3, 0.7))), classes
+
+
+@pytest.mark.parametrize("name", ["IWOAIOAIUnet2DNormalized", "OAIUnet2D",
+                                  "StanfordQDessUNet2D"])
+def test_generate_mask_stages_nest_in_the_segment_span_and_count(tmp_path, name):
+    model, vol, classes = _segmenter(name)
+    before = dict(tprof.counters)
+    with tprof.trace(str(tmp_path)) as prof:
+        model.generate_mask(vol)
+    spans = _spans(prof.trace_path, "dosma.segment")
+    (whole,) = [s for s in spans if s[0] == "dosma.segment"]
+    stages = [s for s in spans if s[0] != "dosma.segment"]
+    assert {s[0] for s in stages} == SEGMENT_STAGES
+    assert all(_inside(s, whole) for s in stages)
+    # Staging and reformat, then the whitening statistics beside the network.
+    assert sorted(s[0] for s in stages).count("dosma.segment.stage") == 2
+    assert {s[3] for s in spans} == {"cpu_op"}
+    bits = {1: 1, 4: 4}[classes]
+    assert tprof.counters["segment.slices"] - before.get("segment.slices", 0) == 6
+    assert (tprof.counters["segment.mask_bytes"] - before.get("segment.mask_bytes", 0)
+            == 6 * 32 * 32 * bits // 8)
+
+
+def test_generate_mask_enters_no_span_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a record function was entered for {name}")
+
+    model, vol, _ = _segmenter("IWOAIOAIUnet2DNormalized")
+    monkeypatch.setattr(tprof, "_record", refuse)
+    before = tprof.counters["segment.slices"]
+    masks = model.generate_mask(vol)
+    assert list(masks) == ["fc", "tc", "pc", "men"]
+    assert tprof.counters["segment.slices"] == before + 6  # counters are always on
