@@ -6,10 +6,22 @@
 // chip smoke test hold this kernel against, is
 // dosma_tpu_torch/ops/monoexp.py::_packed_reference.
 //
+// Two entries share one LM body (fit_voxel):
+//   - dosma_monoexp_lm: the parameters, packed (4, N) rows [a, b, r2,
+//     converged] (sharded_lm_fit, curve_fit);
+//   - dosma_monoexp_maps: MonoExponentialFit's finished maps. It reads the
+//     T echo rows where they lie (T <= 8: one pointer a row, no stacked
+//     copy) and writes tc (N,) and r2 (N,) after the epilogue that
+//     ops/monoexp.py::maps_epilogue computes in torch, in its order: the
+//     NaN policy, 1/|b|, bounds, the r^2 threshold, the mask, nan_to_num
+//     and rounding.
+//
 // What bounds it on an H100: instructions issued. A voxel costs T*4 bytes
 // of echoes in and 16 bytes of packed results out (32 bytes at T = 4):
-// 537 MB at 16.7M voxels, 0.16 ms at 3.35 TB/s. Against that, with every
-// multiply and add its own instruction (-fmad=false, below), an LM
+// 537 MB at 16.7M voxels, 0.16 ms at 3.35 TB/s; the maps entry writes 8
+// bytes a voxel (24 at T = 4) and reads 4 more of mask when given one.
+// Against that, with every multiply and add its own instruction
+// (-fmad=false, below), an LM
 // iteration is ~230 SASS instructions (T = 4, uniform echoes) and the
 // seed, first evaluation and results ~400 more, and a warp iterates as
 // long as its slowest voxel (1.5x the mean iteration count on noisy
@@ -30,10 +42,10 @@
 //     after the first pass) and rebuilds the columns for each pass;
 //   - uniformly spaced echoes use e_t = e0 * q^t: two expf per evaluation
 //     instead of T; the seed takes one logf per echo;
-//   - one thread per voxel; the voxel axis of y (T, N) is contiguous, so
-//     each echo row is read coalesced across a warp, and the four output
-//     rows of (4, N) are written coalesced; the ragged edge is masked in
-//     the kernel, so no pad voxels exist.
+//   - one thread per voxel; the voxel axis of each echo row is contiguous,
+//     so each row is read coalesced across a warp, and the output rows are
+//     written coalesced; the ragged edge is masked in the kernel, so no pad
+//     voxels exist.
 // Lane refill (generic_lm.cuh) does not pay here: the seed, the first
 // evaluation and the results are ~40% of a voxel's instructions, and a
 // refilled lane runs them while its warp waits. Moving a block's unfinished
@@ -68,6 +80,8 @@
 // multiply-adds (0.75 vs 0.58 ms at 16.7M voxels on an NVIDIA H100 80GB
 // HBM3 at a 700 W power limit; tools/compare_kernels.py --fma measures
 // both, and counts the FMA build's values beyond the tolerance).
+
+#include <cfloat>
 
 #include "lm_common.cuh"
 
@@ -106,8 +120,7 @@ struct Echoes {
   Voxel<TT> v;
   float xy[TT > 0 ? TT : 1];
   float xxy[TT > 0 ? TT : 1];
-  __device__ __forceinline__ Echoes(const float* x, const float* y, long long stride, int t_rt)
-      : v(x, y, stride, t_rt) {
+  __device__ __forceinline__ explicit Echoes(const Voxel<TT>& v_) : v(v_) {
     if constexpr (TT > 0) {
 #pragma unroll
       for (int t = 0; t < TT; ++t) {
@@ -194,21 +207,34 @@ __device__ __forceinline__ Eval evaluate(const Echoes<TT>& h, int T, float b, fl
 
 // Threads a block, and the fewest blocks an SM must hold at once, which caps
 // the registers a thread may use (ptxas's report: chip_smoke.py phase 4).
+// The maps entry needs a register or two more than the packed one for its
+// epilogue; uncapped (65 registers at T = 4) an SM holds 3 blocks, not 4,
+// and the kernel took 0.87 ms at config1 against 0.73 for the packed one.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, 16.7M voxels, ms at
+// kMapsMinBlocks 1 / 4 / 5 / 6: T = 4 uniform 0.893 / 0.812 / 0.789 / 0.814,
+// T = 4 not uniform 1.023 / 1.034 / 1.006 / 1.044, T = 7 uniform 1.887 /
+// 1.413 / 1.447 / 1.514, T = 8 not uniform 1.994 / 1.693 / 1.758 / 1.863
+// (5 blocks spill 76 bytes at T = 4; 4 blocks 40-76 bytes at T = 7-8).
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 1;
+constexpr int kMapsMinBlocks = 5;      // T <= 4
+constexpr int kMapsMinBlocksWide = 4;  // T > 4
 
+// One voxel's fit: its amplitude a, rate b, r^2 and convergence flag.
+struct Result {
+  float a, b, r2;
+  bool converged;
+};
+
+// The LM body both entries run for voxel n: the seed (log-linear in the
+// kernel, or the rate p0b[n * p0_sn]), the loop until the voxel latches or
+// max_iter, then a and r^2 at the final rate.
 template <int TT, bool UNI>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-monoexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long long y_st,
-                  long long y_sn, const float* __restrict__ p0b, long long p0_sn,
-                  float* __restrict__ out, long long N, int T_rt, int max_iter, float ftol,
-                  float xtol, int seed_in_kernel) {
-  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (n >= N) return;
-
-  const Echoes<TT> h(x, y + n * y_sn, y_st, T_rt);
+__device__ __forceinline__ Result fit_voxel(const Echoes<TT>& h, int T,
+                                            const float* __restrict__ p0b, long long p0_sn,
+                                            long long n, int max_iter, float ftol, float xtol,
+                                            int seed_in_kernel) {
   const Voxel<TT>& v = h.v;
-  const int T = TT > 0 ? TT : T_rt;
   const float x0 = v.X(0);
   const float dx = T > 1 ? v.X(1) - v.X(0) : v.X(0);
 
@@ -303,46 +329,181 @@ monoexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long
     ss_tot += d * d;
   }
   const bool finite = isfinite(a) && isfinite(b);
-  const float converged = (latched && finite && !bad_init) ? 1.0f : 0.0f;
-
-  out[n] = a;
-  out[N + n] = b;
-  out[2 * N + n] = 1.0f - cur.phi / (ss_tot + 1e-8f);
-  out[3 * N + n] = converged;
+  Result res;
+  res.a = a;
+  res.b = b;
+  res.r2 = 1.0f - cur.phi / (ss_tot + 1e-8f);
+  res.converged = latched && finite && !bad_init;
+  return res;
 }
 
 template <int TT, bool UNI>
-void launch(const float* x, const float* y, long long y_st, long long y_sn, const float* p0b,
-            long long p0_sn, float* out, long long N, int T, int max_iter, float ftol, float xtol,
-            int seed_in_kernel, cudaStream_t stream) {
-  const long long blocks = (N + kThreads - 1) / kThreads;
-  monoexp_lm_kernel<TT, UNI><<<(unsigned int)blocks, kThreads, 0, stream>>>(
-      x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol, seed_in_kernel);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+monoexp_lm_kernel(const float* __restrict__ x, const float* __restrict__ y, long long y_st,
+                  long long y_sn, const float* __restrict__ p0b, long long p0_sn,
+                  float* __restrict__ out, long long N, int T_rt, int max_iter, float ftol,
+                  float xtol, int seed_in_kernel) {
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= N) return;
+
+  const Echoes<TT> h(Voxel<TT>(x, y + n * y_sn, y_st, T_rt));
+  const Result r = fit_voxel<TT, UNI>(h, TT > 0 ? TT : T_rt, p0b, p0_sn, n, max_iter, ftol,
+                                      xtol, seed_in_kernel);
+  out[n] = r.a;
+  out[N + n] = r.b;
+  out[2 * N + n] = r.r2;
+  out[3 * N + n] = r.converged ? 1.0f : 0.0f;
 }
 
-template <bool UNI>
-void dispatch_T(const float* x, const float* y, long long y_st, long long y_sn, const float* p0b,
-                long long p0_sn, float* out, long long N, int T, int max_iter, float ftol,
-                float xtol, int seed_in_kernel, cudaStream_t s) {
-#define DOSMA_MONOEXP_CASE(TV)                                                              \
-  case TV:                                                                                  \
-    launch<TV, UNI>(x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol,          \
-                    seed_in_kernel, s);                                                     \
-    break;
-  switch (T) {
-    DOSMA_MONOEXP_CASE(1)
-    DOSMA_MONOEXP_CASE(2)
-    DOSMA_MONOEXP_CASE(3)
-    DOSMA_MONOEXP_CASE(4)
-    DOSMA_MONOEXP_CASE(5)
-    DOSMA_MONOEXP_CASE(6)
-    DOSMA_MONOEXP_CASE(7)
-    DOSMA_MONOEXP_CASE(8)
-    default:
-      launch<0, UNI>(x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol,
-                     seed_in_kernel, s);
+// Where the maps entry reads the echoes: T <= kMaxRegisterEchoes, row t at
+// y[t] (voxel n at y[t][n * sn]); otherwise one (T, N) buffer at y[0]
+// (echo t of voxel n at y[0][t * st + n * sn]).
+struct EchoRows {
+  const float* y[dosma::kMaxRegisterEchoes];
+  long long st, sn;
+};
+
+// The maps' epilogue: bounds (lb, ub) on tc, the r^2 threshold when
+// has_thr, nan_fill, and rounding (round 1: nearbyint(tc * scale) / scale,
+// -1: nearbyint(tc / scale) * scale, scale = 10^|decimals|, as torch.round
+// computes it; 0: none).
+struct Epilogue {
+  float lb, ub, thr, nan_fill, scale;
+  int has_thr, round;
+};
+
+struct MapsArgs {
+  const float* x;
+  EchoRows rows;
+  const float* p0b;
+  long long p0_sn;
+  const float* mask;  // (N,) float32, or null
+  float* tc;
+  float* r2;
+  long long N;
+  int T, max_iter;
+  float ftol, xtol;
+  int seed_in_kernel;
+  Epilogue ep;
+};
+
+template <int TT>
+__device__ __forceinline__ Voxel<TT> row_voxel(const float* x, const EchoRows& rows,
+                                               long long n, int T) {
+  if constexpr (TT > 0) {
+    Voxel<TT> v;
+    v.xg = x;
+    v.yg = nullptr;
+    v.st = 0;
+    v.T = TT;
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      v.xs[t] = __ldg(x + t);
+      v.ys[t] = __ldg(rows.y[t] + n * rows.sn);
+    }
+    return v;
+  } else {
+    return Voxel<0>(x, rows.y[0] + n * rows.sn, rows.st, T);
   }
-#undef DOSMA_MONOEXP_CASE
+}
+
+// The fit of voxel n, then in registers what ops/monoexp.py::_nan_policy
+// and maps_epilogue compute in torch, operation for operation.
+template <int TT, bool UNI>
+__global__ void __launch_bounds__(kThreads, (TT > 0 && TT <= 4) ? kMapsMinBlocks
+                                                                  : kMapsMinBlocksWide)
+monoexp_lm_maps_kernel(const MapsArgs a) {
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= a.N) return;
+
+  const int T = TT > 0 ? TT : a.T;
+  const Echoes<TT> h(row_voxel<TT>(a.x, a.rows, n, T));
+  const Result r = fit_voxel<TT, UNI>(h, T, a.p0b, a.p0_sn, n, a.max_iter, a.ftol, a.xtol,
+                                      a.seed_in_kernel);
+
+  // nan_policy "scipy": an all-zero voxel or a voxel that did not converge
+  // gives b NaN and r^2 0.
+  bool all_zero = true;
+#pragma unroll
+  for (int t = 0; t < (TT > 0 ? TT : T); ++t) all_zero = all_zero && (h.v.Y(t) == 0.f);
+  const bool bad = all_zero || !r.converged;
+  const float b = bad ? NAN : r.b;
+  float r2 = bad ? 0.f : r.r2;
+
+  const Epilogue& ep = a.ep;
+  float tc = 1.0f / fabsf(b);
+  if (tc < ep.lb || tc > ep.ub) tc = NAN;
+  if (ep.has_thr && r2 < ep.thr) tc = NAN;
+  if (a.mask != nullptr && !(__ldg(a.mask + n) > 0.f)) {
+    tc = NAN;
+    r2 = ep.nan_fill;
+  }
+  // nan_to_num: NaN to nan_fill, +-inf to +-FLT_MAX.
+  tc = isnan(tc) ? ep.nan_fill : (tc == INFINITY ? FLT_MAX : (tc == -INFINITY ? -FLT_MAX : tc));
+  if (ep.round > 0)
+    tc = nearbyintf(tc * ep.scale) / ep.scale;
+  else if (ep.round < 0)
+    tc = nearbyintf(tc / ep.scale) * ep.scale;
+  a.tc[n] = tc;
+  a.r2[n] = r2;
+}
+
+struct PackedArgs {
+  const float *x, *y;
+  long long y_st, y_sn;
+  const float* p0b;
+  long long p0_sn;
+  float* out;
+  long long N;
+  int T, max_iter;
+  float ftol, xtol;
+  int seed_in_kernel;
+};
+
+template <int TT, bool UNI>
+struct Packed {
+  static void run(const PackedArgs& a, unsigned int blocks, cudaStream_t s) {
+    monoexp_lm_kernel<TT, UNI><<<blocks, kThreads, 0, s>>>(a.x, a.y, a.y_st, a.y_sn, a.p0b,
+                                                           a.p0_sn, a.out, a.N, a.T, a.max_iter,
+                                                           a.ftol, a.xtol, a.seed_in_kernel);
+  }
+};
+
+template <int TT, bool UNI>
+struct Maps {
+  static void run(const MapsArgs& a, unsigned int blocks, cudaStream_t s) {
+    monoexp_lm_maps_kernel<TT, UNI><<<blocks, kThreads, 0, s>>>(a);
+  }
+};
+
+// Launches kernel K's instantiation for T (T <= 8: its own; otherwise TT =
+// 0) and the echo spacing; uniform (e0 * q^t) only for T > 2.
+template <template <int, bool> class K, bool UNI, class Args>
+void dispatch_T(const Args& a, unsigned int blocks, cudaStream_t s) {
+  switch (a.T) {
+    case 1: K<1, UNI>::run(a, blocks, s); break;
+    case 2: K<2, UNI>::run(a, blocks, s); break;
+    case 3: K<3, UNI>::run(a, blocks, s); break;
+    case 4: K<4, UNI>::run(a, blocks, s); break;
+    case 5: K<5, UNI>::run(a, blocks, s); break;
+    case 6: K<6, UNI>::run(a, blocks, s); break;
+    case 7: K<7, UNI>::run(a, blocks, s); break;
+    case 8: K<8, UNI>::run(a, blocks, s); break;
+    default: K<0, UNI>::run(a, blocks, s);
+  }
+}
+
+template <template <int, bool> class K, class Args>
+int launch(const Args& a, int uniform_x, void* stream) {
+  if (a.N <= 0 || a.T <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (a.N + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uniform_x && a.T > 2)
+    dispatch_T<K, true>(a, (unsigned int)blocks, s);
+  else
+    dispatch_T<K, false>(a, (unsigned int)blocks, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -357,14 +518,44 @@ extern "C" int dosma_monoexp_lm(const float* x, const float* y, long long y_st, 
                                 const float* p0b, long long p0_sn, float* out, long long N, int T,
                                 int max_iter, float ftol, float xtol, int seed_in_kernel,
                                 int uniform_x, void* stream) {
-  if (N <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  if ((N + kThreads - 1) / kThreads > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uniform_x && T > 2)
-    dispatch_T<true>(x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol,
-                     seed_in_kernel, s);
-  else
-    dispatch_T<false>(x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol,
-                      seed_in_kernel, s);
-  return (int)cudaGetLastError();
+  const PackedArgs a{x, y, y_st, y_sn, p0b, p0_sn, out, N, T, max_iter, ftol, xtol,
+                     seed_in_kernel};
+  return launch<Packed>(a, uniform_x, stream);
+}
+
+// The same fit, and the finished maps: tc (N,) and r2 (N,) f32 contiguous.
+// y_rows: for T <= 8, T pointers, echo t of voxel n at y_rows[t][n * y_sn];
+// otherwise one pointer, echo t of voxel n at y_rows[0][t * y_st + n * y_sn].
+// tc of a voxel outside (lb, ub), or with r2 < thr when has_thr, is NaN.
+// mask (N,) f32 or null: where it is not > 0, tc is NaN and r2 nan_fill.
+// Then tc's NaNs become nan_fill and it is rounded (round_mode 1 / -1 / 0
+// and round_scale as in Epilogue). Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError().
+extern "C" int dosma_monoexp_maps(const float* x, const float* const* y_rows, long long y_st,
+                                  long long y_sn, const float* p0b, long long p0_sn,
+                                  const float* mask, float* tc, float* r2, long long N, int T,
+                                  int max_iter, float ftol, float xtol, int seed_in_kernel,
+                                  int uniform_x, float lb, float ub, int has_thr, float thr,
+                                  float nan_fill, int round_mode, float round_scale,
+                                  void* stream) {
+  if (T <= 0) return (int)cudaErrorInvalidValue;
+  MapsArgs a{};
+  a.x = x;
+  const int rows = T <= dosma::kMaxRegisterEchoes ? T : 1;
+  for (int t = 0; t < rows; ++t) a.rows.y[t] = y_rows[t];
+  a.rows.st = y_st;
+  a.rows.sn = y_sn;
+  a.p0b = p0b;
+  a.p0_sn = p0_sn;
+  a.mask = mask;
+  a.tc = tc;
+  a.r2 = r2;
+  a.N = N;
+  a.T = T;
+  a.max_iter = max_iter;
+  a.ftol = ftol;
+  a.xtol = xtol;
+  a.seed_in_kernel = seed_in_kernel;
+  a.ep = Epilogue{lb, ub, thr, nan_fill, round_scale, has_thr, round_mode};
+  return launch<Maps>(a, uniform_x, stream);
 }

@@ -8,6 +8,12 @@ Counterpart of ``dosma_tpu/ops/monoexp_pallas.py``. :func:`monoexp_lm` fits
 to :func:`monoexp_lm_reference`, the plain PyTorch version of the same
 algorithm. Data on a card is never moved to the host to be fit.
 
+:func:`monoexp_maps` is the same fit taken to ``MonoExponentialFit``'s
+finished maps ``(tc, r2)``: on a card one launch of the kernel's maps entry,
+which reads the echo rows where they lie and applies :func:`maps_epilogue`
+in registers; on the CPU its plain version, :func:`_packed_reference` and
+then :func:`maps_epilogue` in torch.
+
 The algorithm (both versions): an optional log-linear seed, then VARPRO —
 the amplitude ``a`` is eliminated in closed form and damped exact-Newton
 runs on the rate ``b`` alone. Each voxel iterates until its own
@@ -26,9 +32,13 @@ import torch
 from dosma_tpu_torch.core.device import as_tensor
 from dosma_tpu_torch.utils.profiling import count
 
-__all__ = ["monoexp_lm", "monoexp_lm_reference"]
+__all__ = ["monoexp_lm", "monoexp_lm_reference", "monoexp_maps", "monoexp_maps_reference",
+           "maps_epilogue"]
 
 _OUT_ROWS = 4  # [a, b, r2, converged]
+# Echo counts the maps entry reads as separate rows (csrc/lm_common.cuh's
+# kMaxRegisterEchoes); more echoes are read from one (T, N) buffer.
+ROW_ECHOES = 8
 
 
 def _detect_uniform_x(x) -> bool:
@@ -182,6 +192,25 @@ def _kernel_fn(fmad: bool = False):
     return fn
 
 
+def _maps_kernel_fn():
+    from dosma_tpu_torch.ops._build import load_library
+
+    fn = load_library("monoexp_lm").dosma_monoexp_maps
+    if fn.argtypes is None:
+        vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, vp, ll, ll, vp, ll, vp, vp, vp, ll, ci, ci, cf, cf, ci, ci,
+                       cf, cf, ci, cf, cf, ci, cf, vp]
+        fn.restype = ci
+    return fn
+
+
+def _raise_launch_error(err, device):
+    raise RuntimeError(
+        f"monoexp_lm kernel launch failed: {torch.cuda.get_device_name(device)} "
+        f"reported CUDA error {err}"
+    )
+
+
 def _packed_kernel(x, yT, p0b, max_iter, ftol, xtol, uniform_x, fmad=False) -> torch.Tensor:
     """Launch ``csrc/monoexp_lm.cu`` on the current stream: packed (4, N).
 
@@ -202,59 +231,89 @@ def _packed_kernel(x, yT, p0b, max_iter, ftol, xtol, uniform_x, fmad=False) -> t
             int(p0b is None), int(bool(uniform_x)), stream,
         )
     if err != 0:
-        raise RuntimeError(
-            f"monoexp_lm kernel launch failed: {torch.cuda.get_device_name(yT.device)} "
-            f"reported CUDA error {err}"
-        )
+        _raise_launch_error(err, yT.device)
     return out
+
+
+def _maps_kernel(x, y, p0b, max_iter, ftol, xtol, uniform_x, epilogue) -> Tuple[torch.Tensor, ...]:
+    """Launch the maps entry of ``csrc/monoexp_lm.cu`` on the current stream:
+    ``(tc (N,), r2 (N,))``. ``y`` is a (T, N) tensor or, for T <= ROW_ECHOES,
+    a list of T contiguous (N,) rows, which the kernel reads where they lie
+    (counted under ``fit.echoes_in_place``)."""
+    bounds, r2_threshold, decimals, mask, nan_fill = epilogue
+    if isinstance(y, torch.Tensor):
+        T, N = y.shape
+        base, st, sn = y.data_ptr(), y.stride(0), y.stride(1)
+        ptrs = [base + 4 * t * st for t in range(T)] if T <= ROW_ECHOES else [base]
+        device = y.device
+    else:
+        T, N, sn, st = len(y), y[0].shape[0], 1, 0
+        ptrs = [r.data_ptr() for r in y]
+        device = y[0].device
+        count("fit.echoes_in_place")
+    tc = torch.empty(N, dtype=torch.float32, device=device)
+    r2 = torch.empty(N, dtype=torch.float32, device=device)
+    lb, ub = bounds
+    round_mode = 0 if decimals is None else (1 if decimals >= 0 else -1)
+    scale = 1.0 if decimals is None else float(np.float32(10.0 ** abs(int(decimals))))
+    fn = _maps_kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        count("monoexp_lm.launches")
+        err = fn(
+            x.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs), st, sn,
+            None if p0b is None else p0b.data_ptr(),
+            0 if p0b is None or p0b.numel() == 1 else p0b.stride(0),
+            None if mask is None else mask.data_ptr(), tc.data_ptr(), r2.data_ptr(),
+            N, T, int(max_iter), float(ftol), float(xtol), int(p0b is None),
+            int(bool(uniform_x)), float(lb), float(ub), int(r2_threshold is not None),
+            0.0 if r2_threshold is None else float(r2_threshold), float(nan_fill),
+            round_mode, scale, stream,
+        )
+    if err != 0:
+        _raise_launch_error(err, device)
+    return tc, r2
 
 
 # ----------------------------------------------------------------------
 # Public wrappers
 # ----------------------------------------------------------------------
-def _fit(
-    packed: Optional[Callable], x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy,
-    y_layout, uniform_x,
-):
+def _echo_times(x, uniform_x):
+    """(T,) echo times as host float32, and whether they are uniform."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()  # (T,) echo times: a few bytes
     x_host = np.asarray(x, np.float32)
     if uniform_x is None:
         uniform_x = _detect_uniform_x(x_host)
+    return x_host, bool(uniform_x)
 
-    if not isinstance(y, torch.Tensor):
-        y = torch.from_numpy(np.ascontiguousarray(y))
-    yT = y.T if y_layout != "tn" else y
-    if yT.ndim != 2 or yT.shape[0] != x_host.shape[0]:
-        raise ValueError(f"y must be (N, {x_host.shape[0]}) for y_layout={y_layout!r}")
-    if yT.dtype != torch.float32:
-        yT = yT.to(torch.float32)
-    device = yT.device
-    if packed is None:
-        if device.type == "cuda":
-            packed = _packed_kernel
-        elif device.type == "cpu":
-            packed = _packed_reference
-        else:
-            raise ValueError(f"monoexp_lm runs on cpu or cuda tensors, got {device}")
-    T, N = yT.shape
 
-    x_dev = as_tensor(x_host, device)
+def _runner(device, kernel, plain, name):
+    if device.type == "cuda":
+        return kernel
+    if device.type == "cpu":
+        return plain
+    raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
+
+
+def _rate_seeds(p0, device, N):
+    """The rate seeds p0b ((1,) or (N,)) on ``device``; None for the
+    log-linear seed."""
     if p0 is None:
-        p0b = None
-    else:
-        if not isinstance(p0, torch.Tensor):
-            p0 = np.asarray(p0, np.float32)
-        p0_t = as_tensor(p0, device).to(torch.float32)
-        p0b = p0_t[1].reshape(1) if p0_t.ndim == 1 else p0_t[:, 1]
-        if p0b.numel() not in (1, N):
-            raise ValueError(f"p0 must be (2,) or ({N}, 2), got {tuple(p0_t.shape)}")
+        return None
+    if not isinstance(p0, torch.Tensor):
+        p0 = np.asarray(p0, np.float32)
+    p0_t = as_tensor(p0, device).to(torch.float32)
+    p0b = p0_t[1].reshape(1) if p0_t.ndim == 1 else p0_t[:, 1]
+    if p0b.numel() not in (1, N):
+        raise ValueError(f"p0 must be (2,) or ({N}, 2), got {tuple(p0_t.shape)}")
+    return p0b
 
-    if N == 0:
-        out = torch.empty((_OUT_ROWS, 0), dtype=torch.float32, device=device)
-    else:
-        out = packed(x_dev, yT, p0b, int(max_iter), float(ftol), float(xtol), bool(uniform_x))
 
+def _nan_policy(out, yT, y_bounds, nan_policy):
+    """Packed rows to ``(popt (N, 2), r2, converged)``: all-zero voxels (and,
+    with y_bounds, voxels with an echo outside them) and, under ``"scipy"``,
+    voxels that did not converge get NaN parameters and r2 0."""
     a, b, r2 = out[0], out[1], out[2]
     converged = out[3] > 0.5
     popt = torch.stack([a, b], dim=-1)
@@ -267,6 +326,104 @@ def _fit(
     popt = torch.where(bad[:, None], torch.nan, popt)
     r2 = torch.where(bad, 0.0, r2)
     return popt, r2, converged
+
+
+def _fit(
+    packed: Optional[Callable], x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy,
+    y_layout, uniform_x,
+):
+    x_host, uniform_x = _echo_times(x, uniform_x)
+
+    if not isinstance(y, torch.Tensor):
+        y = torch.from_numpy(np.ascontiguousarray(y))
+    yT = y.T if y_layout != "tn" else y
+    if yT.ndim != 2 or yT.shape[0] != x_host.shape[0]:
+        raise ValueError(f"y must be (N, {x_host.shape[0]}) for y_layout={y_layout!r}")
+    if yT.dtype != torch.float32:
+        yT = yT.to(torch.float32)
+    device = yT.device
+    if packed is None:
+        packed = _runner(device, _packed_kernel, _packed_reference, "monoexp_lm")
+    T, N = yT.shape
+
+    x_dev = as_tensor(x_host, device)
+    p0b = _rate_seeds(p0, device, N)
+
+    if N == 0:
+        out = torch.empty((_OUT_ROWS, 0), dtype=torch.float32, device=device)
+    else:
+        out = packed(x_dev, yT, p0b, int(max_iter), float(ftol), float(xtol), uniform_x)
+    return _nan_policy(out, yT, y_bounds, nan_policy)
+
+
+def maps_epilogue(b, r2, bounds, r2_threshold, decimals, mask, nan_fill):
+    """``MonoExponentialFit``'s maps from the rates ``b`` and ``r2`` after the
+    NaN policy: ``tc = 1 / |b|``; NaN outside ``bounds`` and, when
+    ``r2_threshold`` is given, where r2 is below it; outside ``mask`` (a
+    float32 (N,) tensor, or None) tc NaN and r2 ``nan_fill``; NaN to
+    ``nan_fill`` (and ±inf to the float32 extremes); then ``decimals``
+    rounding (halves to even), unless None. The maps entry of the kernel
+    computes the same operations in the same order."""
+    lb, ub = bounds
+    tc = 1.0 / torch.abs(b)
+    tc = torch.where((tc < lb) | (tc > ub), torch.nan, tc)
+    if r2_threshold is not None:
+        tc = torch.where(r2 < r2_threshold, torch.nan, tc)
+    if mask is not None:
+        inside = mask > 0
+        tc = torch.where(inside, tc, torch.nan)
+        r2 = torch.where(inside, r2, nan_fill)
+    tc = torch.nan_to_num(tc, nan=nan_fill)
+    if decimals is not None:
+        tc = torch.round(tc, decimals=int(decimals))
+    return tc, r2
+
+
+def _maps_plain(x_dev, y, p0b, max_iter, ftol, xtol, uniform_x, epilogue):
+    """The plain version of the maps entry: :func:`_packed_reference`, the
+    NaN policy and :func:`maps_epilogue` in torch, on ``y``'s device."""
+    bounds, r2_threshold, decimals, mask, nan_fill = epilogue
+    yT = y if isinstance(y, torch.Tensor) else torch.stack(y, dim=0)
+    out = _packed_reference(x_dev, yT, p0b, max_iter, ftol, xtol, uniform_x)
+    popt, r2, _ = _nan_policy(out, yT, None, "scipy")
+    return maps_epilogue(popt[:, 1], r2, bounds, r2_threshold, decimals, mask, nan_fill)
+
+
+def _maps(
+    run: Optional[Callable], x, y, p0, max_iter, ftol, xtol, bounds, r2_threshold, decimals,
+    mask, nan_fill, uniform_x,
+):
+    x_host, uniform_x = _echo_times(x, uniform_x)
+    T = x_host.shape[0]
+    if isinstance(y, (torch.Tensor, np.ndarray)):
+        if not isinstance(y, torch.Tensor):
+            y = torch.from_numpy(np.ascontiguousarray(y))
+        if y.ndim != 2 or y.shape[0] != T:
+            raise ValueError(f"y must be ({T}, N), got {tuple(y.shape)}")
+        y = y if y.dtype == torch.float32 else y.to(torch.float32)
+        device, N = y.device, y.shape[1]
+    else:
+        y = [r if isinstance(r, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(r))
+             for r in y]
+        if len(y) != T or len({(r.device, tuple(r.shape)) for r in y}) != 1 or y[0].ndim != 1:
+            raise ValueError(f"y must be {T} rows (N,) on one device")
+        y = [r.to(torch.float32).contiguous() for r in y]
+        device, N = y[0].device, y[0].shape[0]
+        if T > ROW_ECHOES:
+            y = torch.stack(y, dim=0)
+    if run is None:
+        run = _runner(device, _maps_kernel, _maps_plain, "monoexp_maps")
+    if mask is not None:
+        mask = as_tensor(mask, device).to(torch.float32).reshape(-1).contiguous()
+        if mask.numel() != N:
+            raise ValueError(f"mask must have {N} voxels, got {mask.numel()}")
+    if N == 0:
+        empty = torch.empty(0, dtype=torch.float32, device=device)
+        return empty, empty.clone()
+    x_dev = as_tensor(x_host, device)
+    p0b = _rate_seeds(p0, device, N)
+    epilogue = (bounds, r2_threshold, decimals, mask, nan_fill)
+    return run(x_dev, y, p0b, int(max_iter), float(ftol), float(xtol), uniform_x, epilogue)
 
 
 def monoexp_lm(
@@ -319,3 +476,58 @@ def monoexp_lm_reference(
         _packed_reference, x, y, p0, max_iter, ftol, xtol, y_bounds, nan_policy, y_layout,
         uniform_x,
     )
+
+
+def monoexp_maps(
+    x,
+    y,
+    p0=None,
+    max_iter: int = 100,
+    ftol: float = 1e-5,
+    xtol: float = 1e-5,
+    bounds: Tuple[float, float] = (0.0, 100.0),
+    r2_threshold: Optional[float] = None,
+    decimals: Optional[int] = None,
+    mask=None,
+    nan_fill: float = 0.0,
+    uniform_x=None,
+):
+    """``MonoExponentialFit``'s finished maps in one call: the fit of
+    :func:`monoexp_lm` (NaN policy ``"scipy"``), then :func:`maps_epilogue`.
+
+    Args:
+        x: (T,) echo times (host array or tensor).
+        y: (T, N) echoes, or a sequence of T (N,) rows on one device: a CUDA
+            card's are read where they lie by one launch of the kernel's maps
+            entry (T <= ``ROW_ECHOES``; more rows are stacked first), CPU
+            data by the plain version.
+        p0: None seeds from the log-linear polyfit; otherwise (2,) or
+            (N, 2) ``[a, b]`` seeds (only ``b`` is used).
+        bounds, r2_threshold, decimals, mask, nan_fill: as
+            :func:`maps_epilogue` reads them; ``mask`` (N,) of any dtype,
+            inside where it is > 0.
+
+    Returns:
+        (tc (N,), r2 (N,)) float32 tensors on ``y``'s device.
+    """
+    return _maps(None, x, y, p0, max_iter, ftol, xtol, bounds, r2_threshold, decimals, mask,
+                 nan_fill, uniform_x)
+
+
+def monoexp_maps_reference(
+    x,
+    y,
+    p0=None,
+    max_iter: int = 100,
+    ftol: float = 1e-5,
+    xtol: float = 1e-5,
+    bounds: Tuple[float, float] = (0.0, 100.0),
+    r2_threshold: Optional[float] = None,
+    decimals: Optional[int] = None,
+    mask=None,
+    nan_fill: float = 0.0,
+    uniform_x=None,
+):
+    """:func:`monoexp_maps` computed by the plain PyTorch version on any device."""
+    return _maps(_maps_plain, x, y, p0, max_iter, ftol, xtol, bounds, r2_threshold, decimals,
+                 mask, nan_fill, uniform_x)

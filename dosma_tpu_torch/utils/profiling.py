@@ -14,9 +14,12 @@ one's :func:`trace` included) beside the kernels and copies of the card:
 
 - ``dosma.fit`` (``MonoExponentialFit.fit``) and its stages
   ``dosma.fit.prepare`` (checks, ``reformat``, the mask's alignment),
-  ``dosma.fit.stack`` (the echo stack on the compute device),
-  ``dosma.fit.lm`` (``monoexp_lm`` with its small copies and NaN policy),
-  ``dosma.fit.post`` (bounds, r², mask, ``nan_to_num``, rounding) and
+  ``dosma.fit.stack`` (the echo stack on the compute device, where the
+  echoes are not float32 rows on it already, or are more than eight),
+  ``dosma.fit.lm`` (on a card the mask's crossing and the one launch of
+  ``monoexp_lm``'s maps entry; on the CPU ``monoexp_lm`` with its small
+  copies and NaN policy), ``dosma.fit.post`` (on the CPU: bounds, r², mask,
+  ``nan_to_num``, rounding; a card's kernel does them) and
   ``dosma.fit.maps`` (reshape, the host copy back, headers, the volumes);
   ``dosma.fit.scan`` around it in a scan's map method;
 - ``dosma.rows`` (``QuantitativeValue.metric_rows``) and its stages
@@ -44,7 +47,9 @@ masks' copies to the host), and the hand-written
 kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
 ``generic_lm.launches``, ``warp_grid.launches`` and
 ``region_stats.launches`` (one a call of the region statistics' kernel
-chain, ``ops/analytics.py::region_stats`` on a card's map).
+chain, ``ops/analytics.py::region_stats`` on a card's map), and
+``fit.echoes_in_place`` (fits whose echo rows ``monoexp_lm``'s maps entry
+read where they lie, with no stacked copy).
 """
 
 from __future__ import annotations

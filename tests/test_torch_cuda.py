@@ -614,3 +614,123 @@ def test_metric_rows_launch_the_kernel_once_on_a_card_map(card):
         assert got["Median"] == want["Median"] and got["Max"] == want["Max"]
         np.testing.assert_allclose([got["Mean"], got["Std"]], [want["Mean"], want["Std"]],
                                    rtol=1e-12)
+
+
+def _maps_echoes(T, uniform, N, seed, device):
+    """(x (T,) host, yT (T, N) on ``device``): config1-like noisy decays with
+    the edge voxels up front: all zero, constant, growing, negated, one zero
+    echo, time constants far outside the echoes, a NaN and an inf echo."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = ((10.0 * np.arange(1, T + 1)) if uniform
+         else np.sort(np.random.RandomState(T).rand(T) * 60 + 3)).astype(np.float32)
+    xt = torch.from_numpy(x).to(device)
+    b = -1.0 / (torch.rand(N, generator=gen, device=device) * 70 + 10)
+    yT = torch.exp(b[None] * xt[:, None]) + 0.005 * torch.randn((T, N), generator=gen,
+                                                                 device=device)
+    yT[:, 0] = 0
+    yT[:, 1] = 0.7
+    yT[:, 2] = torch.exp(0.02 * xt)
+    yT[:, 3] = -yT[:, 3]
+    yT[T // 2, 4] = 0
+    yT[:, 5:9] = torch.exp(-xt[:, None] / torch.tensor([0.5, 2.0, 400.0, 5e4], device=device))
+    yT[1, 9] = float("nan")
+    yT[1, 10] = float("inf")
+    return x, yT.contiguous()
+
+
+_MAPS_CASES = {
+    # name: (T, uniform, N, tc0, r2_threshold, decimals, mask dtype, nan_fill, max_iter)
+    "config1": (4, True, 512 * 512 * 64, "polyfit", 0.9, 1, "uint8", 0.0, 100),
+    "T4_edges": (4, True, 70_000, "polyfit", "data", 1, "uint8", 0.0, 100),
+    "T3_nonuniform": (3, False, 70_000, 30.0, "data", 3, "int32", -2.5, 100),
+    "T8": (8, True, 70_000, "polyfit", None, 0, "bool", 0.0, 100),
+    "T9_nonuniform": (9, False, 70_000, "polyfit", "data", -1, "float32", 1.5, 100),
+    "unconverged": (4, False, 70_000, 25.0, None, None, None, float("nan"), 2),
+    "tc_inf": (4, True, 70_000, float("inf"), None, 1, None, 0.0, 100),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_MAPS_CASES))
+def test_maps_entry_equals_its_plain_version_and_the_unfused_composition(name, card):
+    """One launch of the maps entry gives, bit for bit, the maps of its plain
+    version on the card and of the packed kernel followed by the torch
+    epilogue; rows are read in place. Bounds and the r² threshold are taken
+    at the data's own values, so voxels lie exactly at each of them."""
+    from dosma_tpu_torch.ops.monoexp import (
+        _nan_policy, _packed_kernel, maps_epilogue, monoexp_maps, monoexp_maps_reference,
+    )
+
+    T, uniform, N, tc0, thr, decimals, mask_kind, fill, max_iter = _MAPS_CASES[name]
+    x, yT = _maps_echoes(T, uniform, N, seed=len(name), device=card)
+    p0 = None if tc0 == "polyfit" else np.array([1.0, -1.0 / tc0], np.float32)
+    p0b = None if p0 is None else torch.tensor([p0[1]], device=card)
+    xt = torch.from_numpy(x).to(card)
+    packed = _packed_kernel(xt, yT, p0b, max_iter, 1e-5, 1e-5, uniform)
+    popt, r2, _ = _nan_policy(packed, yT, None, "scipy")
+    tc_raw = 1.0 / torch.abs(popt[:, 1])
+    kept = torch.sort(tc_raw[torch.isfinite(tc_raw)]).values
+    bounds = ((float(kept[kept.numel() // 6]), float(kept[5 * kept.numel() // 6]))
+              if name != "tc_inf" else (0.0, float("inf")))
+    if thr == "data":
+        thr = float(torch.sort(r2).values[N // 3])
+    mask = None
+    if mask_kind is not None:
+        m = torch.randint(-2, 3, (N,), generator=torch.Generator(device=card).manual_seed(9),
+                          device=card)
+        m[:20] = 1
+        mask = (m > 0) if mask_kind == "bool" else m.to(getattr(torch, mask_kind))
+    mask_f = None if mask is None else mask.to(torch.float32)
+    epilogue = dict(bounds=bounds, r2_threshold=thr, decimals=decimals, nan_fill=fill)
+
+    rows = [r for r in yT]
+    before = dict(counters)
+    got = monoexp_maps(x, rows, p0, max_iter=max_iter, mask=mask, **epilogue)
+    torch.cuda.synchronize()
+    assert counters["monoexp_lm.launches"] == before.get("monoexp_lm.launches", 0) + 1
+    in_place = 1 if T <= 8 else 0
+    assert counters["fit.echoes_in_place"] == before.get("fit.echoes_in_place", 0) + in_place
+    plain = monoexp_maps_reference(x, yT, p0, max_iter=max_iter, mask=mask, **epilogue)
+    unfused = maps_epilogue(popt[:, 1], r2, bounds, thr, decimals, mask_f, fill)
+    for g, p, u in zip(got, plain, unfused):
+        assert g.is_cuda and g.shape == (N,)
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), u.view(torch.int32))
+    tc = got[0]
+    if name == "tc_inf":
+        assert float(tc[1]) == float("inf")  # b = -0: tc inf -> FLT_MAX -> rounded past it
+    if thr is not None and name != "config1":
+        assert bool((r2 == thr).any())
+    if name != "tc_inf":
+        assert all(bool((tc_raw == bound).any()) for bound in bounds)
+
+
+@pytest.mark.cuda
+def test_a_card_fit_reads_its_echoes_in_place(card):
+    """MonoExponentialFit.fit of float32 card volumes: one monoexp_lm launch
+    and one fit.echoes_in_place; the maps equal the plain version's on the
+    same card; host volumes are stacked and not counted."""
+    from dosma_tpu_torch.ops.monoexp import monoexp_maps_reference
+
+    x, yT = _maps_echoes(4, True, 32 * 40 * 16, seed=4, device=card)
+    shape = (32, 40, 16)
+    affine = np.eye(4)
+    labels = torch.zeros(shape, dtype=torch.uint8, device=card)
+    labels[4:28, 4:36, :8] = 1
+    ys = [dt.MedicalVolume(yT[t].reshape(shape), affine) for t in range(4)]
+    fitter = dt.MonoExponentialFit(tc0="polyfit", bounds=(0, 100))
+    before = dict(counters)
+    tc, r2 = fitter.fit(x, ys, mask=dt.MedicalVolume(labels, affine))
+    torch.cuda.synchronize()
+    assert counters["monoexp_lm.launches"] == before.get("monoexp_lm.launches", 0) + 1
+    assert counters["fit.echoes_in_place"] == before.get("fit.echoes_in_place", 0) + 1
+    want = monoexp_maps_reference(x, yT, None, bounds=(0, 100), r2_threshold=0.9, decimals=1,
+                                  mask=labels.reshape(-1))
+    assert torch.equal(tc.A.reshape(-1).view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(r2.A.reshape(-1).view(torch.int32), want[1].view(torch.int32))
+
+    host = [dt.MedicalVolume(v.A.cpu().numpy(), affine) for v in ys]
+    with dt.default_device(card):
+        tc_h, _ = fitter.fit(x, host, mask=dt.MedicalVolume(labels.cpu().numpy(), affine))
+    assert counters["fit.echoes_in_place"] == before.get("fit.echoes_in_place", 0) + 1
+    np.testing.assert_array_equal(tc_h.A, tc.A.cpu().numpy())
