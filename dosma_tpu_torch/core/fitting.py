@@ -592,7 +592,6 @@ class MonoExponentialFit:
         numpy-backed maps; tensor volumes are fit on their device and give
         tensor-backed maps there.
         """
-        from dosma_tpu_torch.ops.monoexp import ROW_ECHOES
         from dosma_tpu_torch.ops.monoexp_pipeline import monoexp_fit_full
 
         x = self.x if x is None else x
@@ -615,20 +614,19 @@ class MonoExponentialFit:
                     mask = mask.reformat_as(y[0])
                     if not mask.is_same_dimensions(y[0], defaults.AFFINE_DECIMAL_PRECISION):
                         raise RuntimeError("`mask` and `y` dimension mismatch")
-                mask_flat = None if mask is None else _flat_tensor(mask.volume)
+                mask_flat = None if mask is None else mask.volume.reshape(-1)
 
             shape = y[0].shape
             vols = [sv.volume for sv in y]
             host = all(isinstance(v, np.ndarray) for v in vols)
-            device = compute_device(*vols)
-            if len(vols) <= ROW_ECHOES and all(
-                    isinstance(v, torch.Tensor) and v.device == device
-                    and v.dtype == torch.float32 for v in vols):
-                # The kernel reads each echo's flat row where it lies.
-                yT = [v.reshape(-1) for v in vols]
-            else:
+            if host:
+                # Host echoes cross to the compute device once, stacked.
                 with annotate("dosma.fit.stack"):
-                    yT = as_tensor(torch.stack([_flat_tensor(v) for v in vols], dim=0), device)
+                    yT = as_tensor(torch.stack([_flat_tensor(v) for v in vols], dim=0),
+                                   compute_device())
+            else:
+                # Tensor echoes as flat rows: the fit lays them out for its kernel.
+                yT = [v.reshape(-1) for v in vols]
             tc_flat, r2_flat = monoexp_fit_full(
                 np.asarray(x, np.float32), yT,
                 bounds=self.bounds, tc0=self.tc0,

@@ -59,9 +59,9 @@
 //
 // Built with -fmad=false (ops/_build.py), and every sum over echoes runs in
 // order t = 0, 1, ..., T-1, as the plain version's: the two round every
-// operation alike. An FMA build is 14% faster (0.54 against 0.63 ms on the
-// card above; tools/compare_kernels.py --fma) and stays within 1e-5 of it
-// on the bench data, but is not bit-equal to the plain version.
+// operation alike. An FMA build measured 14% faster (0.54 against 0.63 ms
+// on the card above) and stayed within 1e-5 of it on the bench data, but
+// is not bit-equal to the plain version; the port has no such build.
 
 #include "lm_common.cuh"
 

@@ -78,8 +78,8 @@
 // up to ~5e-5 apart (measured on the H100, 4% of noisy voxels beyond 1e-5).
 // The price: the kernel takes 29% more time than a build with fused
 // multiply-adds (0.75 vs 0.58 ms at 16.7M voxels on an NVIDIA H100 80GB
-// HBM3 at a 700 W power limit; tools/compare_kernels.py --fma measures
-// both, and counts the FMA build's values beyond the tolerance).
+// HBM3 at a 700 W power limit, measured when the port could still build
+// both; it has one build now).
 
 #include <cfloat>
 

@@ -54,8 +54,8 @@
 // Built with -fmad=false (ops/_build.py), like the other kernels: every
 // product and sum is rounded on its own, in the order of the plain version
 // (dosma_tpu_torch/ops/warp.py::warp_grid_reference), so the two agree bit
-// for bit. A build with FMA contraction (tools/compare_kernels.py --fma
-// times it beside) moves an order-3 sum that cancels coefficients of ~1e3
+// for bit. A build with FMA contraction (measured, not built by the port)
+// moves an order-3 sum that cancels coefficients of ~1e3
 // down to a value near 0 by up to ~4e-4, beyond the 1e-5 * max(1, |v|) the
 // port holds its kernels to. The moving coordinate is rounded product by product
 // (__fmul_rn, __fadd_rn) in either build, so its taps and masks never move.

@@ -33,6 +33,8 @@ _BUILD_DIR = _PKG_DIR / "_build"
 _HOST_SRC = _CSRC / "host"
 _HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
 
+# -fmad=false rounds every multiply and add on its own, as the plain versions'
+# torch ops do: the kernels' bit equality with them depends on it.
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,14 +51,8 @@ def _nvcc() -> str:
     return found
 
 
-def _nvcc_flags(fmad: bool) -> tuple:
-    if not fmad:
-        return _NVCC_FLAGS
-    return tuple("-fmad=true" if f == "-fmad=false" else f for f in _NVCC_FLAGS)
-
-
-def _digest(flags: tuple, main_name: str, main_text: bytes) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _digest(main_name: str, main_text: bytes) -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for path in sorted(_CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -65,9 +61,9 @@ def _digest(flags: tuple, main_name: str, main_text: bytes) -> str:
     return h.hexdigest()[:16]
 
 
-def _sources_digest(name: str, flags: tuple) -> str:
+def _sources_digest(name: str) -> str:
     path = _CSRC / f"{name}.cu"
-    return _digest(flags, path.name, path.read_bytes())
+    return _digest(path.name, path.read_bytes())
 
 
 def _cxx() -> str:
@@ -109,21 +105,17 @@ def _load(src: Path, stem: str, command: list) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str, fmad: bool = False) -> ctypes.CDLL:
+def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is not built yet, and load it.
 
     The compiler's register and spill report (``-Xptxas -v``) is kept beside
     the library as ``<name>-<hash>.log``; ``load_library(name).build_seconds``
-    is the compile time (0 when an existing build was loaded). ``fmad=True``
-    builds a second library with fused multiply-adds, which only
-    ``tools/profile_monoexp_fit.py`` and ``tools/compare_kernels.py --fma``
-    load, to measure what ``-fmad=false`` costs.
+    is the compile time (0 when an existing build was loaded).
     """
-    flags = _nvcc_flags(fmad)
     src = _CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source {src} missing")
-    return _load(src, f"{name}-{_sources_digest(name, flags)}", _nvcc_command(flags))
+    return _load(src, f"{name}-{_sources_digest(name)}", _nvcc_command())
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,8 +123,7 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
     """Compile a generated CUDA source (which may include ``csrc/*.cuh``)
     once per distinct text, and load it. The source is kept beside its
     library as ``<name>-<hash>.cu``."""
-    flags = _nvcc_flags(False)
-    stem = f"{name}-{_digest(flags, name, source.encode())}"
+    stem = f"{name}-{_digest(name, source.encode())}"
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _BUILD_DIR / f"{stem}.cu"
     if not src.is_file():
@@ -140,11 +131,11 @@ def load_generated(name: str, source: str) -> ctypes.CDLL:
         with os.fdopen(fd, "w") as f:
             f.write(source)
         os.replace(tmp, src)
-    return _load(src, stem, _nvcc_command(flags))
+    return _load(src, stem, _nvcc_command())
 
 
-def _nvcc_command(flags: tuple) -> list:
-    return [_nvcc(), *flags, "-I", str(_CSRC)]
+def _nvcc_command() -> list:
+    return [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -180,11 +180,10 @@ def _packed_reference(x, yT, p0b, max_iter, ftol, xtol, uniform_x) -> torch.Tens
 # ----------------------------------------------------------------------
 # CUDA kernel
 # ----------------------------------------------------------------------
-def _kernel_fn(fmad: bool = False):
+def _kernel_fn():
     from dosma_tpu_torch.ops._build import load_library
 
-    lib = load_library("monoexp_lm", fmad=fmad)
-    fn = lib.dosma_monoexp_lm
+    fn = load_library("monoexp_lm").dosma_monoexp_lm
     if fn.argtypes is None:
         vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp, vp, ll, ll, vp, ll, vp, ll, ci, ci, cf, cf, ci, ci, vp]
@@ -211,15 +210,11 @@ def _raise_launch_error(err, device):
     )
 
 
-def _packed_kernel(x, yT, p0b, max_iter, ftol, xtol, uniform_x, fmad=False) -> torch.Tensor:
-    """Launch ``csrc/monoexp_lm.cu`` on the current stream: packed (4, N).
-
-    ``fmad=True`` launches the build with fused multiply-adds (see
-    ``_build.load_library``); the fit path never passes it.
-    """
+def _packed_kernel(x, yT, p0b, max_iter, ftol, xtol, uniform_x) -> torch.Tensor:
+    """Launch ``csrc/monoexp_lm.cu`` on the current stream: packed (4, N)."""
     T, N = yT.shape
     out = torch.empty((_OUT_ROWS, N), dtype=torch.float32, device=yT.device)
-    fn = _kernel_fn(fmad)
+    fn = _kernel_fn()
     with torch.cuda.device(yT.device):
         stream = torch.cuda.current_stream().cuda_stream
         count("monoexp_lm.launches")
@@ -393,18 +388,23 @@ def _maps(
     run: Optional[Callable], x, y, p0, max_iter, ftol, xtol, bounds, r2_threshold, decimals,
     mask, nan_fill, uniform_x,
 ):
+    """The one place that lays out the kernel's inputs: echoes of any dtype
+    become float32, contiguous rows read in place for T <= ROW_ECHOES or one
+    stacked buffer above that; the mask becomes float32 where it lies, then
+    moves to the echoes' device."""
+    if mask is not None:
+        # Cast first: on a card the cast runs while the host lays out the rest.
+        mask = as_tensor(mask).to(torch.float32).reshape(-1)
     x_host, uniform_x = _echo_times(x, uniform_x)
     T = x_host.shape[0]
     if isinstance(y, (torch.Tensor, np.ndarray)):
-        if not isinstance(y, torch.Tensor):
-            y = torch.from_numpy(np.ascontiguousarray(y))
+        y = as_tensor(y)
         if y.ndim != 2 or y.shape[0] != T:
             raise ValueError(f"y must be ({T}, N), got {tuple(y.shape)}")
-        y = y if y.dtype == torch.float32 else y.to(torch.float32)
+        y = y.to(torch.float32)
         device, N = y.device, y.shape[1]
     else:
-        y = [r if isinstance(r, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(r))
-             for r in y]
+        y = [as_tensor(r) for r in y]
         if len(y) != T or len({(r.device, tuple(r.shape)) for r in y}) != 1 or y[0].ndim != 1:
             raise ValueError(f"y must be {T} rows (N,) on one device")
         y = [r.to(torch.float32).contiguous() for r in y]
@@ -414,7 +414,7 @@ def _maps(
     if run is None:
         run = _runner(device, _maps_kernel, _maps_plain, "monoexp_maps")
     if mask is not None:
-        mask = as_tensor(mask, device).to(torch.float32).reshape(-1).contiguous()
+        mask = as_tensor(mask, device).contiguous()
         if mask.numel() != N:
             raise ValueError(f"mask must have {N} voxels, got {mask.numel()}")
     if N == 0:
@@ -497,15 +497,17 @@ def monoexp_maps(
 
     Args:
         x: (T,) echo times (host array or tensor).
-        y: (T, N) echoes, or a sequence of T (N,) rows on one device: a CUDA
-            card's are read where they lie by one launch of the kernel's maps
-            entry (T <= ``ROW_ECHOES``; more rows are stacked first), CPU
-            data by the plain version.
+        y: (T, N) echoes, or a sequence of T (N,) rows on one device, of any
+            dtype (numpy arrays are CPU data): a CUDA card's float32 rows
+            are read where they lie by one launch of the kernel's maps entry
+            (T <= ``ROW_ECHOES``; other dtypes are cast row by row, more
+            rows are stacked first), CPU data by the plain version.
         p0: None seeds from the log-linear polyfit; otherwise (2,) or
             (N, 2) ``[a, b]`` seeds (only ``b`` is used).
         bounds, r2_threshold, decimals, mask, nan_fill: as
-            :func:`maps_epilogue` reads them; ``mask`` (N,) of any dtype,
-            inside where it is > 0.
+            :func:`maps_epilogue` reads them; ``mask`` (N,) voxels of any
+            dtype on any device, inside where it is > 0, cast to float32
+            where it lies and then moved to ``y``'s device.
 
     Returns:
         (tc (N,), r2 (N,)) float32 tensors on ``y``'s device.

@@ -14,11 +14,12 @@ one's :func:`trace` included) beside the kernels and copies of the card:
 
 - ``dosma.fit`` (``MonoExponentialFit.fit``) and its stages
   ``dosma.fit.prepare`` (checks, ``reformat``, the mask's alignment),
-  ``dosma.fit.stack`` (the echo stack on the compute device, where the
-  echoes are not float32 rows on it already, or are more than eight),
-  ``dosma.fit.lm`` (on a card the mask's crossing and the one launch of
-  ``monoexp_lm``'s maps entry; on the CPU ``monoexp_lm`` with its small
-  copies and NaN policy), ``dosma.fit.post`` (on the CPU: bounds, r², mask,
+  ``dosma.fit.stack`` (host volumes' float32 echo stack and its one
+  crossing to the compute device), ``dosma.fit.lm`` (on a card the
+  layout of the kernel's inputs in ``ops/monoexp.py::_maps``: casts, the
+  stack of more than eight rows, the mask's cast and crossing; and the
+  one launch of ``monoexp_lm``'s maps entry; on the CPU ``monoexp_lm``
+  with its small copies and NaN policy), ``dosma.fit.post`` (on the CPU: bounds, r², mask,
   ``nan_to_num``, rounding; a card's kernel does them) and
   ``dosma.fit.maps`` (reshape, the host copy back, headers, the volumes);
   ``dosma.fit.scan`` around it in a scan's map method;

@@ -296,11 +296,10 @@ def test_cuda_source_of_a_program():
     assert f"0x{int(np.float32(0.1).view(np.uint32)):08x}" in src2
 
     # One library per distinct generated text: the cache key follows the text.
-    flags = _build._nvcc_flags(False)
-    key = _build._digest(flags, "generic_lm_p3", src.encode())
-    assert key == _build._digest(flags, "generic_lm_p3", program.cuda_source.encode())
+    key = _build._digest("generic_lm_p3", src.encode())
+    assert key == _build._digest("generic_lm_p3", program.cuda_source.encode())
     other = G.compile_model(lambda x, a, b, c: a * torch.exp(b * x) - c, 3).cuda_source
-    assert key != _build._digest(flags, "generic_lm_p3", other.encode())
+    assert key != _build._digest("generic_lm_p3", other.encode())
 
 
 def test_binary_ops_cover_operator_module():

@@ -379,3 +379,29 @@ def test_host_and_tensor_volumes_give_the_same_maps(T):
     # On the CPU the plain version stacks the rows: no kernel read them.
     assert counters["fit.echoes_in_place"] == before
     assert (tc_h.A > 0).mean() > 0.2
+
+
+@pytest.mark.parametrize("T", [4, 9])
+def test_tensor_volumes_of_another_dtype_give_the_host_maps(T):
+    # The fit casts echoes of any dtype to float32 in one place: CPU tensor
+    # volumes of float64 and int32 give the maps of float32 host volumes
+    # holding the same values, and so does the maps entry's plain version on
+    # their rows.
+    shape = (10, 9, 4)
+    _, yT = _echoes(T, True, N=int(np.prod(shape)), seed=7)
+    x = _times(T, True)
+    mask = _mask("uint8", yT.shape[1]).numpy().reshape(shape)
+    fitter = dt.MonoExponentialFit(tc0="polyfit", bounds=(0, 100), r2_threshold=0.9)
+    before = counters["fit.echoes_in_place"]
+    for values in (yT.astype(np.float64), np.round(1000 * yT).astype(np.int32)):
+        tc_h, r2_h = fitter.fit(x, _volumes(values.astype(np.float32), shape, "host"), mask=mask)
+        tc_t, r2_t = fitter.fit(x, _volumes(values, shape, "tensors"), mask=torch.from_numpy(mask))
+        assert _bits_equal(tc_t.A, torch.from_numpy(tc_h.A))
+        assert _bits_equal(r2_t.A, torch.from_numpy(r2_h.A))
+        plain = monoexp_maps_reference(x, [torch.from_numpy(r) for r in values],
+                                       bounds=(0, 100), r2_threshold=0.9, decimals=1,
+                                       mask=mask.reshape(-1))
+        assert _bits_equal(plain[0], tc_t.A.reshape(-1))
+        assert _bits_equal(plain[1], r2_t.A.reshape(-1))
+        assert (tc_h.A > 0).mean() > 0.2
+    assert counters["fit.echoes_in_place"] == before

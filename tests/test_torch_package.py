@@ -106,18 +106,16 @@ def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 
 def test_fmad_build_is_a_separate_library():
-    # The default build keeps multiplies and adds separately rounded, as the
-    # plain version does; the fused build (for measuring that choice) must
-    # never be loaded in its place, so its flags and file name differ.
+    # There is one build of each kernel: multiplies and adds separately
+    # rounded, as the plain version's are (bit equality depends on it), for
+    # Hopper's sm_90a; each source gets a library of its own name.
     from dosma_tpu_torch.ops import _build
 
-    plain, fused = _build._nvcc_flags(False), _build._nvcc_flags(True)
-    assert "-fmad=false" in plain and "-fmad=true" not in plain
-    assert "-fmad=true" in fused and "-fmad=false" not in fused
-    assert "arch=compute_90a,code=sm_90a" in fused
-    assert _build._sources_digest("monoexp_lm", plain) != _build._sources_digest(
-        "monoexp_lm", fused
-    )
+    flags = _build._NVCC_FLAGS
+    assert "-fmad=false" in flags and "-fmad=true" not in flags
+    assert "--use_fast_math" not in flags
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert _build._sources_digest("monoexp_lm") != _build._sources_digest("biexp_lm")
 
 
 _IO_AND_MAP_NAMES = [

@@ -3,8 +3,8 @@
 
 Usage, on a machine with one CUDA card:
 
-    python3 tools/compare_kernels.py --root DIR [--fma] [--sweep] [--sass]
-    python3 tools/compare_kernels.py --turns DIR_A DIR_B [--fma] [--sass]
+    python3 tools/compare_kernels.py --root DIR [--sweep] [--sass]
+    python3 tools/compare_kernels.py --turns DIR_A DIR_B [--sass]
 
 ``--root`` imports ``dosma_tpu_torch`` from the checkout at DIR (its kernels
 build into DIR's own ``dosma_tpu_torch/_build/``) and times, with CUDA
@@ -32,12 +32,6 @@ events (after a warm-up):
   it, the median duration of the kernel itself over those 50 launches,
   from ``torch.profiler`` (``*_kernel_ms``), which host work cannot
   reach.
-
-``--fma`` also times the checkout's LM kernels (monoexp, biexp) and warp
-kernel built with FMA contraction (``_build.load_library(name,
-fmad=True)``), which the port does not use, at every shape above, and
-reports each one's largest |Δ| to the port's build and the values beyond
-1e-5 * max(1, |v|).
 
 ``--sweep`` times the monoexp and biexp kernels built with each of three
 ``__launch_bounds__`` settings (``kThreads`` threads a block and
@@ -85,8 +79,6 @@ def main(argv=None):
     target.add_argument("--root", help="checkout whose dosma_tpu_torch is timed")
     target.add_argument("--turns", nargs=2, metavar=("A", "B"),
                         help="time checkouts A and B in turns A, B, B, A")
-    parser.add_argument("--fma", action="store_true",
-                        help="also time the LM and warp kernels built with FMA contraction")
     parser.add_argument("--sweep", action="store_true",
                         help="also time the LM kernels at three launch-bounds settings")
     parser.add_argument("--sass", action="store_true",
@@ -130,8 +122,6 @@ def main(argv=None):
         lambda: _packed_kernel(program, x, yT, p0, 60, 1e-5, 1e-5))
     del yT
 
-    fma_launch = _fma_launcher(warp_mod, "warp_grid", "dosma_warp_grid", "_launch") \
-        if opts.fma else None
     M = np.array([[np.cos(cs.WARP_ANGLE), -np.sin(cs.WARP_ANGLE), 0, cs.WARP_SHIFT[0]],
                   [np.sin(cs.WARP_ANGLE), np.cos(cs.WARP_ANGLE), 0, cs.WARP_SHIFT[1]],
                   [0, 0, 1.0, cs.WARP_SHIFT[2]], [0, 0, 0, 1.0]], np.float32)
@@ -158,12 +148,6 @@ def main(argv=None):
     for name, v, Bc, out_shape, order, reps in cases:
         srcs = warp_mod.prepare_sources(v, order)
         timings(name, lambda: warp_mod.warp_grid(srcs, Bc, out_shape, order), reps)
-        if fma_launch is not None:
-            got = warp_mod.warp_grid(srcs, Bc, out_shape, order)
-            fma = fma_launch(srcs, Bc, out_shape, order)
-            timings(f"{name}_fma", lambda: fma_launch(srcs, Bc, out_shape, order), reps)
-            _fma_diff(cs, res, name, fma, got)
-            del got, fma
         del srcs
         torch.cuda.empty_cache()
     print(json.dumps(res))
@@ -172,8 +156,8 @@ def main(argv=None):
 
 def _lm_kernels(cs, dev, res, opts):
     """The monoexp and biexp kernels of the checkout on phases 4 and 5's
-    data: times, output digests, and with opts.fma / opts.sweep the FMA
-    builds and the launch-bounds sweep."""
+    data: times, output digests, and with opts.sweep the launch-bounds
+    sweep."""
     from dosma_tpu_torch.ops import biexp as biexp_mod
     from dosma_tpu_torch.ops import monoexp as mono_mod
 
@@ -188,12 +172,6 @@ def _lm_kernels(cs, dev, res, opts):
     res["monoexp_rows_sha256"] = _digest(rows)
     if opts.sweep:
         _sweep(cs, res, mono_mod, "monoexp_lm", margs)
-    if opts.fma:
-        fma = mono_mod._packed_kernel(*margs, fmad=True)
-        res["monoexp_lm_fma_ms"], res["monoexp_lm_fma_runs"] = _time(
-            cs, lambda: mono_mod._packed_kernel(*margs, fmad=True), LM_REPS)
-        _fma_diff(cs, res, "monoexp_lm", fma, rows)
-        del fma
     del rows, yT
     torch.cuda.empty_cache()
 
@@ -207,13 +185,6 @@ def _lm_kernels(cs, dev, res, opts):
         cs, lambda: biexp_mod._packed_kernel(*bargs), LM_REPS)
     rows = biexp_mod._packed_kernel(*bargs)
     res["biexp_rows_sha256"] = _digest(rows)
-    if opts.fma:
-        launch = _fma_launcher(biexp_mod, "biexp_lm", "dosma_biexp_lm", "_packed_kernel")
-        fma = launch(*bargs)
-        res["biexp_lm_fma_ms"], res["biexp_lm_fma_runs"] = _time(
-            cs, lambda: launch(*bargs), LM_REPS)
-        _fma_diff(cs, res, "biexp_lm", fma, rows)
-        del fma
     if opts.sweep:
         _sweep(cs, res, biexp_mod, "biexp_lm", bargs)
     del rows, yT
@@ -316,16 +287,6 @@ def _digest(t):
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-def _fma_diff(cs, res, name, fma, port):
-    """Largest |Δ| of the FMA build against the port's build, and the values
-    beyond the kernel-vs-plain tolerance (NaN at the same place counts 0)."""
-    diff = (fma - port).abs().nan_to_num(0)
-    nan_moved = torch.isnan(fma) != torch.isnan(port)
-    res[f"{name}_fma_max_abs_diff"] = float(diff.max())
-    res[f"{name}_fma_beyond_tolerance"] = int(
-        ((diff > cs.TOL * port.abs().clamp(min=1.0)) | nan_moved).sum())
-
-
 def _time(cs, fn, reps):
     """Median and all of the CUDA-event times of ``reps`` back-to-back
     calls of ``fn``, each divided by ``reps``: 5 times of one call, or 11
@@ -337,29 +298,11 @@ def _time(cs, fn, reps):
     return med / reps, [t / reps for t in runs]
 
 
-def _fma_launcher(mod, lib_name, entry, wrapper):
-    """``mod.<wrapper>`` on the FMA build of ``csrc/<lib_name>.cu``: the
-    wrapper's own checks and arguments, the other library's entry."""
-    from dosma_tpu_torch.ops._build import load_library
-
-    port_fn = mod._kernel_fn
-    fma_fn = getattr(load_library(lib_name, fmad=True), entry)
-    fma_fn.argtypes, fma_fn.restype = port_fn().argtypes, port_fn().restype
-
-    def launch(*args):
-        mod._kernel_fn = lambda: fma_fn
-        try:
-            return getattr(mod, wrapper)(*args)
-        finally:
-            mod._kernel_fn = port_fn
-    return launch
-
-
 def _turns(opts):
     """--root on A, B, B, A in four processes; their lines, then each
     root's median of every time and whether B's LM rows equal A's."""
     a, b = opts.turns
-    flags = [f for f, on in (("--fma", opts.fma), ("--sass", opts.sass)) if on]
+    flags = ["--sass"] if opts.sass else []
     lines = []
     for root in (a, b, b, a):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root, *flags],
