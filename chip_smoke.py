@@ -140,10 +140,11 @@ Phases (any failure raises and exits non-zero):
      condyle arc of bench.py:544-553 (1.54M voxels) set on every tissue;
      generate_t2_map(tissue=...) on the card echoes, bit-equal to
      ops.qmri.qdess_t2_map with the header's parameters; each tissue's
-     quant_rows on the card map against the same on its host copy
-     (categories and counts equal, statistics and unrolled maps within
-     rtol 1e-9, equal NaN positions); each analytics call copies at most 8
-     bytes a masked voxel + 1 MB to the host (profiler memcpy events).
+     quant_rows on the card map against the same on its host copy under
+     default_device("cpu") (categories and counts equal, statistics and
+     unrolled maps within rtol 1e-9, equal NaN positions); each analytics
+     call copies at most 8 bytes a masked voxel + 1 MB to the host
+     (profiler memcpy events).
      Prints the warm walls (one run of each step, with the card's busy
      share over the directory -> rows run from nvidia-smi's sampled
      utilization, not a trace; segment's first call when phase 10 warmed
@@ -219,8 +220,10 @@ Phases (any failure raises and exits non-zero):
      weights (segment --rss, then t2, then knee; the saved masks equal
      generate_mask(scan.calc_rss()) with largest_cc for fc and pc; the
      masks are then replaced by the condyle arc, and each saved T2 map is
-     bit-equal to ops.qmri.qdess_t2_map of the saved echoes; each knee
-     table, read back, equals quant_rows of the card map, rtol 1e-9), and
+     bit-equal to ops.qmri.qdess_t2_map of the saved echoes; knee loads
+     the maps to the host and launches region_stats once, for the
+     meniscus' rows on the default card; each knee table, read back,
+     equals quant_rows of the card map, rtol 1e-9), and
      phase 12's CubeQuant recipe at 384x384x160, 640 files (intraregister
      with --device_load, which reads the series through
      from_dicom(to_device=True)'s pinned prefetch onto the card; then
@@ -2559,7 +2562,8 @@ def phase_qdess_knee(dt, dev, card, model=None, share=None):
                   "qdess_t2_map of the same echoes with the header's parameters")
             host_map = vm.cpu()
             card_rows = t.quant_rows(vm, qv.qv_type)
-            host_rows = t.quant_rows(host_map, qv.qv_type)
+            with dt.default_device("cpu"):  # the plain version on the host
+                host_rows = t.quant_rows(host_map, qv.qv_type)
             results[t.STR_ID] = {"rel": check_tissue_rows(t.STR_ID, card_rows, host_rows),
                                  "rows": len(card_rows[1])}
         print(f"phase 11 T2 maps: bit-equal to ops.qmri.qdess_t2_map of the card echoes "
@@ -3889,9 +3893,10 @@ def phase_cli(dt, dev, card, share=None, model=None):
               "ops.qmri.qdess_t2_map of the saved echoes on the card with the header's "
               "parameters and the tissue's T1")
         with recorded_calls(knee_module, "handle_knee") as knee_runs:
+            # The loaded maps are host maps: the meniscus' rows run on the card.
             calls["qdess_knee"] = cli_call(
                 dt, "knee (qDESS)", ["--load", qsave, "knee", "--fc", "--tc", "--pc", "--men",
-                                     "--t2", "--pid", CLI_PID], qsave, work)
+                                     "--t2", "--pid", CLI_PID], qsave, work, region_stats=1)
         rows_rel = {}
         for tissue in knee_runs[0][2]:  # the knee's own tissues: its masks
             t = tissue.STR_ID

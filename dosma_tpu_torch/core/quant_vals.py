@@ -9,10 +9,12 @@ Regional metrics (finite and bounds mask, per-label Mean / Std / Median /
 rows from :meth:`QuantitativeValue.metric_rows`;
 :meth:`QuantitativeValue.to_metrics` wraps them in a pandas DataFrame
 (pandas is imported there only). The statistics are torch float64
-reductions on the map's device (a host map's on the CPU), every region's
-at once (:func:`dosma_tpu_torch.ops.analytics.region_stats`: a kernel
-chain on a card, its plain version on the CPU), and only the statistics
-cross to the host, in one read, unless ``fns`` need each region's values.
+reductions on the device the rows are computed on: a tensor map's own, a
+host map's the default device (:mod:`dosma_tpu_torch.core.device`), to
+which it crosses once with its mask. Every region's are computed at once
+(:func:`dosma_tpu_torch.ops.analytics.region_stats`: a kernel chain on a
+card, its plain version on the CPU), and only the statistics cross back to
+the host, in one read, unless ``fns`` need each region's values.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from dosma_tpu_torch.core.device import as_tensor
+from dosma_tpu_torch.core.device import as_tensor, compute_device
 from dosma_tpu_torch.core.med_volume import MedicalVolume
-from dosma_tpu_torch.utils.profiling import annotate
+from dosma_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["QuantitativeValueType", "QuantitativeValue", "T1Rho", "T2", "T2Star", "get_qv"]
 
@@ -121,12 +123,21 @@ class QuantitativeValue:
         holds Category / Mean / Std / Median / # Voxels and one entry per
         reduction of ``fns``, which receives the region's values as a host
         array.
+
+        The rows are computed where the map lies, and a host (numpy) map
+        on the default device, as every entry point computes host data: on
+        the first CUDA card unless the CPU was asked for
+        (``default_device("cpu")``). A host map and its mask then cross to
+        the card once; with no card and no request for the CPU this raises.
         """
-        from dosma_tpu_torch.ops.analytics import region_stats, region_values, volume_tensor
+        from dosma_tpu_torch.ops.analytics import region_stats, region_values
 
         with annotate("dosma.rows"):
             with annotate("dosma.rows.gather"):
-                volume = volume_tensor(self.volumetric_map.volume)
+                pixels = self.volumetric_map.volume
+                volume = as_tensor(pixels, compute_device(pixels))
+                if volume.device.type != "cpu" and not isinstance(pixels, torch.Tensor):
+                    count("region_stats.host_maps")
                 mask_t = None
                 if mask is None:
                     labels = {}

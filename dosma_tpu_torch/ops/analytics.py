@@ -60,7 +60,13 @@ def flat_indices(indices, shape) -> np.ndarray:
 
 def volume_tensor(volume) -> torch.Tensor:
     """A map's pixels as a tensor where they lie: a host array becomes a CPU
-    tensor (no copy), a tensor stays on its device."""
+    tensor (no copy), a tensor stays on its device.
+
+    The tissues' own gathers (``Tissue._masked_values``, which the tibial,
+    patellar and meniscus rows share, and ``FemoralCartilage.quant_rows``)
+    read a host map through it, so they keep it on the CPU;
+    ``QuantitativeValue.metric_rows`` computes a host map on the default
+    device instead."""
     return as_tensor(volume, volume.device if isinstance(volume, torch.Tensor) else "cpu")
 
 

@@ -48,7 +48,9 @@ masks' copies to the host), and the hand-written
 kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
 ``generic_lm.launches``, ``warp_grid.launches`` and
 ``region_stats.launches`` (one a call of the region statistics' kernel
-chain, ``ops/analytics.py::region_stats`` on a card's map), and
+chain, ``ops/analytics.py::region_stats`` on a card's map),
+``region_stats.host_maps`` (``metric_rows`` calls whose host map crossed
+to a card for its statistics), and
 ``fit.echoes_in_place`` (fits whose echo rows ``monoexp_lm``'s maps entry
 read where they lie, with no stacked copy).
 """

@@ -595,25 +595,43 @@ def test_region_stats_refuses_more_labels_than_the_kernel_holds(card):
 
 
 @pytest.mark.cuda
-def test_metric_rows_launch_the_kernel_once_on_a_card_map(card):
-    """One region_stats launch per metric_rows of a card map, none for a
-    host map; the rows of the two are the same (fns from the host values)."""
+@pytest.mark.parametrize("where", ["host map, cpu default", "host map, card default",
+                                   "card map"])
+def test_metric_rows_launch_the_kernel_once_on_a_card_map(where, card):
+    """metric_rows computes a card map on the card and a host map on the
+    default device: one region_stats launch on a card, none on the CPU. A
+    host map on a card crosses once, with its mask (``h2d.bytes``), and
+    counts in ``region_stats.host_maps``; a card map crosses nothing but
+    its host mask. The rows equal the plain version's on the host (fns from
+    the host values)."""
+    from dosma_tpu_torch.ops.analytics import region_stats_reference
+
     values, mask = _region_inputs(64 * 48 * 6, torch.float32, torch.uint8, 2, seed=3)
     affine = np.eye(4)
-    host_map = dt.MedicalVolume(values.reshape(64, 48, 6).numpy(), affine)
+    map_mv = dt.MedicalVolume(values.reshape(64, 48, 6).numpy(), affine)
     mask_mv = dt.MedicalVolume(mask.reshape(64, 48, 6).numpy(), affine)
+    labels, bounds = {1: "a", 2: "b"}, (0, 100)
     fns = {"Max": lambda v: float(np.max(v)) if v.size else np.nan}
-    before = counters["region_stats.launches"]
-    host_rows = dt.T2(host_map).metric_rows(mask_mv, {1: "a", 2: "b"}, (0, 100), fns=fns)
-    assert counters["region_stats.launches"] == before
-    card_rows = dt.T2(host_map.to(card)).metric_rows(mask_mv, {1: "a", 2: "b"}, (0, 100),
-                                                     fns=fns)
-    assert counters["region_stats.launches"] == before + 1
-    for got, want in zip(card_rows, host_rows):
-        assert got["Category"] == want["Category"] and got["# Voxels"] == want["# Voxels"]
-        assert got["Median"] == want["Median"] and got["Max"] == want["Max"]
-        np.testing.assert_allclose([got["Mean"], got["Std"]], [want["Mean"], want["Std"]],
-                                   rtol=1e-12)
+    if where == "card map":
+        map_mv = map_mv.to(card)
+    names = ("region_stats.launches", "region_stats.host_maps", "h2d.bytes")
+    before = [counters[name] for name in names]
+    with dt.default_device("cpu" if where == "host map, cpu default" else card):
+        rows = dt.T2(map_mv).metric_rows(mask_mv, labels, bounds, fns=fns)
+    added = [counters[name] - b for name, b in zip(names, before)]
+    map_bytes, mask_bytes = values.numel() * 4, mask.numel()
+    assert added == {"host map, cpu default": [0, 0, 0],
+                     "host map, card default": [1, 1, map_bytes + mask_bytes],
+                     "card map": [1, 0, mask_bytes]}[where]
+
+    want = region_stats_reference(values, mask, list(labels), bounds).tolist()
+    valid = torch.isfinite(values) & (values > 0) & (values <= 100)
+    regions = [valid & (mask == 1), valid & (mask == 2), valid & (mask > 0)]
+    assert [row["Category"] for row in rows] == ["a", "b", "total"]
+    for row, (n, mean, std, median), region in zip(rows, want, regions):
+        assert row["# Voxels"] == n and row["Median"] == median
+        assert row["Max"] == float(values[region].max())
+        np.testing.assert_allclose([row["Mean"], row["Std"]], [mean, std], rtol=1e-12)
 
 
 def _maps_echoes(T, uniform, N, seed, device):

@@ -224,3 +224,5 @@ def test_host_data_without_a_card_or_a_cpu_request_raises(monkeypatch):
     with device.default_device("cpu"):
         tc, _ = dosma_tpu_torch.MonoExponentialFit(tc0="polyfit").fit(_X, ys)
     assert isinstance(tc.A, np.ndarray) and tc.shape == _SHAPE
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dosma_tpu_torch.T2(tc).metric_rows()

@@ -302,6 +302,33 @@ def test_metric_rows_match_the_sorted_rows_and_jax(name, backing):
     _assert_frames_equal(pd.DataFrame(rows), jref)
 
 
+@pytest.mark.parametrize("name", list(_ROW_CASES))
+def test_host_map_rows_stay_on_the_cpu_under_a_cpu_default(name, monkeypatch):
+    """Under ``default_device("cpu")`` a host map's rows never reach the
+    card's kernel chain (its launcher raises here) and nothing crosses: they
+    are ``region_stats_reference``'s on the host, bit for bit."""
+    from dosma_tpu_torch.ops import analytics
+    from dosma_tpu_torch.utils.profiling import counters
+
+    def no_launch(*args):
+        raise AssertionError("a host map under a CPU default reached the kernel chain")
+
+    monkeypatch.setattr(analytics, "_launch", no_launch)
+    make_map, make_mask, labels, bounds, closed = _ROW_CASES[name]
+    arr, m = make_map(), make_mask()
+    names = ("region_stats.host_maps", "h2d.bytes")
+    before = [counters[n] for n in names]
+    rows = tqv.T2(dt.MedicalVolume(arr, _AFFINE)).metric_rows(dt.MedicalVolume(m, _AFFINE),
+                                                             labels, bounds, closed)
+    assert [counters[n] for n in names] == before
+    want = analytics.region_stats_reference(torch.from_numpy(arr), torch.from_numpy(m),
+                                            list(labels), bounds, closed)
+    _same_rows(rows, [{"Category": c, "Mean": mean, "Std": std, "Median": median,
+                       "# Voxels": int(n)}
+                      for c, (n, mean, std, median) in zip([*labels.values(), "total"],
+                                                           want.tolist())])
+
+
 @pytest.mark.parametrize("backing", ["numpy", "tensor"])
 def test_labels_none_keeps_a_label_whose_values_are_all_nan(backing):
     """labels=None lists every label of the mask (validity aside): a label
