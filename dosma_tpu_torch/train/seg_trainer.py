@@ -29,6 +29,12 @@ and writes the same program out by hand:
 
 Every forward and backward runs inside ``unet2d.cudnn_exact()``. A world
 of one rank without a process group communicates nothing.
+
+:meth:`SegTrainer.step` records the span ``dosma.train`` with its stages
+``dosma.train.place`` (the host conversion and the crossing),
+``.forward`` (the forward and the loss), ``.backward`` (``loss.backward()``
+and, on several ranks, the gradients' all-reduce), ``.optimizer`` (the Adam
+step) and ``.loss`` (the loss read back).
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from dosma_tpu_torch.core.device import as_tensor
 from dosma_tpu_torch.models.unet2d import BN_EPS, cudnn_exact, init_unet2d_params
 from dosma_tpu_torch.models.weights import params_from_state_dict, state_dict_from_params
 from dosma_tpu_torch.parallel.sharding import Mesh, NamedSharding, PartitionSpec, make_mesh
+from dosma_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "SegTrainer",
@@ -281,12 +289,13 @@ class _Step:
 
     def place_batch(self, images, labels):
         """This data rank's block of NHWC host arrays, as NCHW float32 on
-        the rank's device."""
+        the rank's device: made float32 on the host, then one crossing each
+        (counted by ``h2d.bytes``)."""
         sharding = NamedSharding(self.mesh, PartitionSpec(self.data_axis))
         rows = sharding.local_slices(np.shape(images))
         dev = self.mesh.device
         return tuple(
-            torch.as_tensor(np.asarray(a)[rows], dtype=torch.float32).to(dev).permute(0, 3, 1, 2)
+            as_tensor(np.asarray(a)[rows].astype(np.float32, copy=False), dev).permute(0, 3, 1, 2)
             for a in (images, labels))
 
     def backward(self, images, labels) -> torch.Tensor:
@@ -294,25 +303,28 @@ class _Step:
         gradient summed over the data ranks."""
         for p in self.params.values():
             p.grad = None
-        with cudnn_exact():
-            probs = unet_train_forward(self.params, images, self.tp)
-            loss = dice_bce_loss(probs, labels, group=self.mesh.group(self.data_axis))
-            loss.backward()
         group = self.mesh.group(self.data_axis)
-        if group is not None:
-            grads = [p.grad for p in self.params.values()]
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=group)
-            offset = 0
-            for g in grads:
-                g.copy_(flat[offset:offset + g.numel()].view_as(g))
-                offset += g.numel()
+        with cudnn_exact():
+            with annotate("dosma.train.forward"):
+                probs = unet_train_forward(self.params, images, self.tp)
+                loss = dice_bce_loss(probs, labels, group=group)
+            with annotate("dosma.train.backward"):
+                loss.backward()
+                if group is not None:
+                    grads = [p.grad for p in self.params.values()]
+                    flat = torch.cat([g.reshape(-1) for g in grads])
+                    dist.all_reduce(flat, group=group)
+                    offset = 0
+                    for g in grads:
+                        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                        offset += g.numel()
         return loss.detach()
 
     def train_step(self, images, labels) -> torch.Tensor:
         """One Adam step of this rank's parameters on NCHW blocks; the loss."""
         loss = self.backward(images, labels)
-        self.optimizer.step()
+        with annotate("dosma.train.optimizer"):
+            self.optimizer.step()
         return loss
 
 
@@ -369,8 +381,12 @@ class SegTrainer:
 
     def step(self, images: np.ndarray, labels: np.ndarray) -> float:
         """One optimisation step on NHWC host batches; returns the loss."""
-        images, labels = self._step.place_batch(images, labels)
-        return float(self._step.train_step(images, labels))
+        with annotate("dosma.train"):
+            with annotate("dosma.train.place"):
+                images, labels = self._step.place_batch(images, labels)
+            loss = self._step.train_step(images, labels)
+            with annotate("dosma.train.loss"):
+                return float(loss)
 
     def loss_and_grads(self, images: np.ndarray, labels: np.ndarray):
         """The loss and the raw gradients of one batch, without a step:

@@ -38,7 +38,12 @@ one's :func:`trace` included) beside the kernels and copies of the card:
   (the batches through whitening, the network, the threshold and the
   packing), ``dosma.segment.copy`` (the one device-to-host copy of the
   masks), ``dosma.segment.unpack`` (the host's unpacking of the bits) and
-  ``dosma.segment.masks`` (the category volumes and the reformat back).
+  ``dosma.segment.masks`` (the category volumes and the reformat back);
+- ``dosma.train`` (``SegTrainer.step``) and its stages ``dosma.train.place``
+  (the batch made float32 on the host and its crossing), ``.forward`` (the
+  forward and the loss), ``.backward`` (``loss.backward()`` and, on several
+  ranks, the gradients' all-reduce), ``.optimizer`` (the Adam step) and
+  ``.loss`` (the loss read back).
 
 Counters: ``h2d.bytes`` (bytes of host tensors or arrays copied to a card
 by :func:`dosma_tpu_torch.core.device.as_tensor`), ``adam.iterations``

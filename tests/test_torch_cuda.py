@@ -410,6 +410,31 @@ def test_trainer_steps_on_the_card(card):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
+@pytest.mark.cuda
+def test_train_step_counts_the_batch_crossing(card):
+    """``SegTrainer.step`` moves the batch through ``as_tensor``: the float32
+    images and labels count once in ``h2d.bytes``, and the placed batch is
+    the host arrays' values in NCHW."""
+    from dosma_tpu_torch.models.unet2d import init_unet2d_params
+    from dosma_tpu_torch.train import SegTrainer
+
+    params = init_unet2d_params(torch.Generator().manual_seed(0), num_classes=2,
+                                features=(8, 16, 32))
+    rs = np.random.RandomState(0)
+    images = rs.rand(4, 32, 32, 1).astype(np.float32)
+    labels = (rs.rand(4, 32, 32, 2) > 0.5).astype(np.uint8)
+    trainer = SegTrainer(num_classes=2, features=(8, 16, 32), params=params)
+    before = dict(counters)
+    x, y = trainer._step.place_batch(images, labels)
+    assert x.device.type == y.device.type == "cuda"
+    assert counters["h2d.bytes"] - before.get("h2d.bytes", 0) == 4 * 32 * 32 * (1 + 2) * 4
+    np.testing.assert_array_equal(x.cpu().numpy(), images.transpose(0, 3, 1, 2))
+    np.testing.assert_array_equal(y.cpu().numpy(), labels.transpose(0, 3, 1, 2))
+    before = dict(counters)
+    assert np.isfinite(trainer.step(images, labels))
+    assert counters["h2d.bytes"] - before.get("h2d.bytes", 0) == 4 * 32 * 32 * (1 + 2) * 4
+
+
 _IOPS = ("__iadd__", "__isub__", "__imul__", "__itruediv__", "__ifloordiv__", "__ipow__")
 _BINOPS = ("__add__", "__sub__", "__mul__", "__truediv__", "__floordiv__", "__pow__")
 

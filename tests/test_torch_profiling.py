@@ -238,3 +238,32 @@ def test_generate_mask_enters_no_span_without_a_profiler(monkeypatch):
     masks = model.generate_mask(vol)
     assert list(masks) == ["fc", "tc", "pc", "men"]
     assert tprof.counters["segment.slices"] == before + 6  # counters are always on
+
+
+TRAIN_STAGES = [f"dosma.train.{k}" for k in ("place", "forward", "backward", "optimizer", "loss")]
+
+
+def test_train_step_stages_nest_in_the_train_span_and_count(tmp_path):
+    """``SegTrainer.step`` records ``dosma.train`` and its five stages in
+    order; on the CPU nothing crosses, so ``h2d.bytes`` stays as it was."""
+    from dosma_tpu_torch.models.unet2d import init_unet2d_params
+    from dosma_tpu_torch.train import SegTrainer
+
+    params = init_unet2d_params(torch.Generator().manual_seed(0), num_classes=2,
+                                features=[4, 8, 16])
+    trainer = SegTrainer(num_classes=2, features=[4, 8, 16], params=params)
+    rs = np.random.RandomState(0)
+    images = rs.rand(3, 16, 16, 1).astype(np.float32)
+    labels = (rs.rand(3, 16, 16, 2) > 0.5).astype(np.uint8)
+    before = dict(tprof.counters)
+    with tprof.trace(str(tmp_path)) as prof:
+        loss = trainer.step(images, labels)
+    assert np.isfinite(loss)
+    spans = _spans(prof.trace_path, "dosma.train")
+    (whole,) = [s for s in spans if s[0] == "dosma.train"]
+    stages = sorted((s for s in spans if s[0] != "dosma.train"), key=lambda s: s[1])
+    assert [s[0] for s in stages] == TRAIN_STAGES
+    assert all(_inside(s, whole) for s in stages)
+    assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))  # one after another
+    assert {s[3] for s in spans} == {"cpu_op"}
+    assert tprof.counters["h2d.bytes"] == before.get("h2d.bytes", 0)
