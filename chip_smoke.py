@@ -118,8 +118,9 @@ Phases (any failure raises and exits non-zero):
      of 0.5 (fails if TF32 reaches the convolutions); (2) generate_mask of
      the host volume equals the threshold of the card's probabilities on
      those slices for fc, tc, pc and men; (3) the volume already on the
-     card gives the same masks; (4) one generate_mask moves the packed mask
-     (384*384*160*4 bits) and at most 1 KB more from the card
+     card gives the same masks; (4) one generate_mask moves the
+     (S, H, W, C) uint8 mask (384*384*160*4 bytes) and at most 1 KB more
+     from the card
      (torch.profiler's memcpy events); (5) bfloat16's max |Δp| against
      float32 and the share of mask voxels that differ stay within
      SEG_BF16_MAX_ABS_ERR and SEG_BF16_MASK_SHARE. Prints the warm
@@ -2135,7 +2136,6 @@ def phase_segmentation(dt, dev, card):
     float32 convolutions."""
     from dosma_tpu_torch.models import IWOAIOAIUnet2DNormalized
     from dosma_tpu_torch.models.unet2d import FEATURES, UNet2D, cudnn_exact
-    from dosma_tpu_torch.models.unet2d import _unpack as unpack
 
     prev_tf32 = torch.backends.cudnn.allow_tf32
     prev_precision = dt.preferences.segmentation_precision
@@ -2202,7 +2202,7 @@ def phase_segmentation(dt, dev, card):
               f"allow_tf32 True: max|Δp| {f32_err:.3g} (tolerance {SEG_F32_TOL}), "
               f"{int(flips.sum())} mask flips, all within it of 0.5; reference {ref_s:.2f} s")
 
-        # Check 2: the packed path is lossless, reformat back included.
+        # Check 2: the masks' path is lossless, reformat back included.
         for s in SEG_CHECK_SLICES:
             want = (probs[s - s % B][s % B] > 0.5).to(torch.uint8).cpu().numpy()  # (C, H, W)
             for ci, c in enumerate(cats):
@@ -2221,17 +2221,17 @@ def phase_segmentation(dt, dev, card):
                                f"on {n_diff} voxels")
         print("phase 10 check 3: the card volume gives the host volume's masks")
 
-        # Check 4: one packed device-to-host copy a call.
-        packed = int(np.prod(KNEE_SHAPE)) * 4 // 8
+        # Check 4: one device-to-host copy of the (S, H, W, C) uint8 mask a call.
+        mask_bytes = int(np.prod(KNEE_SHAPE)) * 4
         moved, n_copies = d2h_bytes(lambda: model.generate_mask(host))
-        check(packed <= moved <= packed + 1024,
-              f"D2H {moved} bytes in one call, not the packed mask's {packed} + scalars")
+        check(mask_bytes <= moved <= mask_bytes + 1024,
+              f"D2H {moved} bytes in one call, not the mask's {mask_bytes} + scalars")
         moved_card, _ = d2h_bytes(lambda: model.generate_mask(on_card))
-        check(packed <= moved_card <= packed + 1024,
-              f"D2H {moved_card} bytes for the card volume, not {packed} + scalars")
+        check(mask_bytes <= moved_card <= mask_bytes + 1024,
+              f"D2H {moved_card} bytes for the card volume, not {mask_bytes} + scalars")
         print(f"phase 10 check 4: D2H {moved:,} bytes in {n_copies} copies a call, "
-              f"{moved_card:,} for the card volume (packed mask {packed:,}; float32 "
-              f"probabilities would be {4 * 4 * int(np.prod(KNEE_SHAPE)):,})")
+              f"{moved_card:,} for the card volume (uint8 mask {mask_bytes:,}; float32 "
+              f"probabilities would be {4 * mask_bytes:,})")
 
         # Times (float32).
         wall_s, walls = median_wall(lambda: model.generate_mask(host))
@@ -2272,12 +2272,11 @@ def phase_segmentation(dt, dev, card):
             fwd_nondet.append(time_ms(nondet_batch, reps=3)[0])
         torch.backends.cudnn.deterministic = prev_det
         del net_cl, slices_cl
-        # The host's share: unpacking the packed bytes of one call.
-        packed_host = np.random.RandomState(1).randint(
-            0, 256, (S, KNEE_SHAPE[0], KNEE_SHAPE[1] // 2), dtype=np.uint8)
-        t0 = time.perf_counter()
-        unpack(packed_host, KNEE_SHAPE[1], 4, 4)
-        unpack_s = time.perf_counter() - t0
+        # The crossing: one call's (S, H, W, C) uint8 mask copied from the card.
+        mask_dev = torch.randint(0, 2, (S, KNEE_SHAPE[0], KNEE_SHAPE[1], 4),
+                                 dtype=torch.uint8, device=dev)
+        copy_s, copies = median_wall(mask_dev.cpu)
+        del mask_dev
         flops = slice_flops(KNEE_SHAPE[0], KNEE_SHAPE[1], FEATURES, 4) * S
         bound_f32 = flops / PEAK_F32_PER_S * 1e3
         bound_bf16 = flops / PEAK_BF16_PER_S * 1e3
@@ -2317,8 +2316,9 @@ def phase_segmentation(dt, dev, card):
               f"= {bound_bf16:.3f} ms (share {bound_bf16 / sum(fwd16):.3f})")
         print(f"  levers not taken, float32 forward: channels_last {sum(fwd_cl):.3f} ms "
               f"({[round(t, 3) for t in fwd_cl]}); non-deterministic cuDNN algorithms "
-              f"{sum(fwd_nondet):.3f} ms ({[round(t, 3) for t in fwd_nondet]}); the host's "
-              f"np.unpackbits of one call's packed mask {unpack_s * 1e3:.3f} ms")
+              f"{sum(fwd_nondet):.3f} ms ({[round(t, 3) for t in fwd_nondet]}); the "
+              f"pageable copy of one call's uint8 mask from the card {copy_s * 1e3:.3f} ms "
+              f"(median of 3; {[round(t * 1e3, 3) for t in copies]})")
         print(f"  card busy in one call {busy_ms:.3f} ms, idle share {idle:.4f}; bfloat16 "
               f"generate_mask {wall16_s:.4f} s ({[round(w, 4) for w in walls16]}); peak memory "
               f"{peak / 2**30:.3f} GiB")
@@ -2333,7 +2333,7 @@ def phase_segmentation(dt, dev, card):
                 "bf16_mask_differ_share": differ_share, "bf16_wall_s": wall16_s,
                 "bf16_forward_ms": sum(fwd16), "bf16_bound_ms": bound_bf16,
                 "peak_bytes": peak, "forward_channels_last_ms": sum(fwd_cl),
-                "forward_nondeterministic_ms": sum(fwd_nondet), "unpack_ms": unpack_s * 1e3}, model
+                "forward_nondeterministic_ms": sum(fwd_nondet), "mask_copy_ms": copy_s * 1e3}, model
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
         dt.preferences.set("segmentation/precision", prev_precision)

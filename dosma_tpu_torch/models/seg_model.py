@@ -84,9 +84,10 @@ class TorchSegModel(SegModel):
         """(S, H, W, C) uint8 masks on the host for a sagittal volume, on
         its device (a host volume: the default device).
 
-        Widths that the packed volume path takes go through
-        :meth:`Unet2D.predict_mask_volume` (one packed device-to-host
-        copy); the others through :meth:`Unet2D.predict_mask`.
+        Widths that the reference's packed volume path takes
+        (:meth:`Unet2D.fits_packed_volume`) go through
+        :meth:`Unet2D.predict_mask_volume`; the others through
+        :meth:`Unet2D.predict_mask`. Each crosses the masks in one copy.
         """
         vol = as_tensor(vol_copy.volume, compute_device(vol_copy.volume))
         model = self.seg_model

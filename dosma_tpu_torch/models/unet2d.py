@@ -226,77 +226,54 @@ def init_unet2d_params(generator: torch.Generator, in_channels: int = 1, num_cla
 
 
 def _bits_per_px(num_classes: int) -> int:
-    """Bits a pixel's class mask takes in the packed output (1, 2, 4 or 8)."""
+    """Bits a pixel's class mask takes in the reference's packed output (1,
+    2, 4 or 8): the width rule of :meth:`Unet2D.fits_packed_volume`."""
     c = num_classes
     return 1 if c == 1 else (2 if c == 2 else (4 if c <= 4 else 8))
 
 
 def _forward_masks(net: UNet2D, x: torch.Tensor, mean, std, threshold: float,
-                   dtype: torch.dtype, bits_per_px: Optional[int]) -> torch.Tensor:
+                   dtype: torch.dtype, out: torch.Tensor) -> None:
     """One batch ``(B, 1, H, W)`` in any dtype: whiten by ``(x - mean) /
     std`` (0-d float32 tensors on its device, or None for no whitening),
-    forward, threshold.
-
-    Returns the class bits packed into bytes, ``bits_per_px`` bits a pixel
-    (``(B, H, W * bits_per_px // 8)`` uint8; bit ``c`` of a pixel's lane is
-    class ``c``), or the per-class mask ``(B, H, W, C)`` when
-    ``bits_per_px`` is None.
-    """
+    forward, and write the thresholded masks into ``out``, ``(B, H, W, C)``
+    uint8 on the same device."""
     x = x.to(torch.float32)
     if mean is not None:
         x = (x - mean) / std
-    probs = net(x.to(dtype))
-    m = (probs > threshold).to(torch.uint8)  # (B, C, H, W)
-    if bits_per_px is None:
-        return m.permute(0, 2, 3, 1)
-    c = m.shape[1]
-    weights = (1 << torch.arange(c, device=m.device, dtype=torch.int32))[:, None, None]
-    packed = (m.to(torch.int32) * weights).sum(dim=1)  # (B, H, W)
-    ppb = 8 // bits_per_px
-    if ppb > 1:
-        b, h, w = packed.shape
-        shifts = torch.arange(ppb, device=m.device, dtype=torch.int32) * bits_per_px
-        packed = (packed.reshape(b, h, w // ppb, ppb) << shifts).sum(dim=-1)
-    return packed.to(torch.uint8)
+    probs = net(x.to(dtype))  # (B, C, H, W)
+    torch.gt(probs.permute(0, 2, 3, 1), threshold, out=out)
 
 
-def _unpack(packed: np.ndarray, width: int, num_classes: int, bits_per_px: int) -> np.ndarray:
-    """Host unpack of :func:`_forward_masks`'s bytes to ``(N, H, W, C)`` uint8."""
-    n, h = packed.shape[:2]
-    out = np.unpackbits(packed[..., None], axis=-1, bitorder="little")
-    return out.reshape(n, h, width, bits_per_px)[..., :num_classes]
-
-
-def _run_batches(net, slices: torch.Tensor, mean, std, threshold, dtype, bits_per_px,
-                 batch_size: int) -> np.ndarray:
-    """Masks of ``slices`` ``(N, 1, H, W)``, batch by batch on their device;
-    the packed outputs are gathered there and cross to the host in one copy.
-    Counts the slices (``segment.slices``) and the bytes copied
-    (``segment.mask_bytes``)."""
+def _run_batches(net, slices: torch.Tensor, mean, std, threshold, dtype, num_classes: int,
+                 batch_size: int) -> torch.Tensor:
+    """Masks ``(N, H, W, C)`` uint8 of ``slices`` ``(N, 1, H, W)``, batch by
+    batch on their device into one contiguous tensor there, which crosses
+    to the host whole in one dense copy. Counts the slices
+    (``segment.slices``) and the bytes copied (``segment.mask_bytes``)."""
+    n, _, h, w = slices.shape
     with annotate("dosma.segment.forward"):
-        outs = [
+        out = torch.empty((n, h, w, num_classes), dtype=torch.uint8, device=slices.device)
+        for s in range(0, n, batch_size):
             _forward_masks(net, slices[s : s + batch_size], mean, std, threshold, dtype,
-                           bits_per_px)
-            for s in range(0, slices.shape[0], batch_size)
-        ]
-        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+                           out[s : s + batch_size])
     with annotate("dosma.segment.copy"):
-        host = out.cpu().numpy()
-    count("segment.slices", slices.shape[0])
+        host = out.cpu()
+    count("segment.slices", n)
     count("segment.mask_bytes", host.nbytes)
     return host
 
 
 def unet2d_segment_volume(net: UNet2D, vol: torch.Tensor, threshold: float, *,
-                          batch_size: int, bits_per_px: int, whiten: bool, whiten_eps: float,
-                          dtype: torch.dtype = torch.float32) -> np.ndarray:
+                          batch_size: int, num_classes: int, whiten: bool, whiten_eps: float,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The volume-segmentation path on ``vol``'s device.
 
     ``vol``: ``(H, W, S)`` tensor in its source dtype. Casts to float32,
     whitens with the whole volume's mean and population std (optional),
-    takes the slices in batches of ``batch_size`` through forward,
-    threshold and bit packing, and returns the packed bytes
-    ``(S, H, W * bits_per_px // 8)`` on the host: one device-to-host copy.
+    takes the slices in batches of ``batch_size`` through forward and
+    threshold, and returns the ``(S, H, W, num_classes)`` uint8 masks as a
+    host tensor: one device-to-host copy.
     """
     with annotate("dosma.segment.stage"):
         x = vol.to(torch.float32)
@@ -305,7 +282,7 @@ def unet2d_segment_volume(net: UNet2D, vol: torch.Tensor, threshold: float, *,
             mean = x.mean()
             std = x.std(correction=0) + whiten_eps
         slices = x.permute(2, 0, 1).contiguous()[:, None]  # (S, 1, H, W)
-    return _run_batches(net, slices, mean, std, threshold, dtype, bits_per_px, batch_size)
+    return _run_batches(net, slices, mean, std, threshold, dtype, num_classes, batch_size)
 
 
 class Unet2D:
@@ -367,7 +344,8 @@ class Unet2D:
 
     def fits_packed_volume(self, width: int) -> bool:
         """Whether :meth:`predict_mask_volume` takes a volume this wide:
-        C <= 8 and W divisible by the pixels a packed byte holds."""
+        C <= 8 and W divisible by the pixels a packed byte holds (the
+        reference's rule, kept though the masks cross unpacked)."""
         bits = _bits_per_px(self.num_classes)
         return self.num_classes <= 8 and width % (8 // bits) == 0
 
@@ -388,45 +366,34 @@ class Unet2D:
         """Segment an ``(H, W, S)`` volume (a tensor, or a host array taken
         to the default device) in batches on its device.
 
-        Returns the ``(S, H, W, C)`` uint8 mask on the host; the packed
-        mask is the only device-to-host copy. Requires
+        Returns the ``(S, H, W, C)`` uint8 mask on the host, written in
+        that layout on the device and crossed in one copy. Requires
         :meth:`fits_packed_volume` of the width, else ``ValueError``.
         """
         if not self.fits_packed_volume(vol.shape[1]):
             raise ValueError("predict_mask_volume constraints not met")
         vol = as_tensor(vol, compute_device(vol))
-        bits = _bits_per_px(self.num_classes)
         with torch.inference_mode(), cudnn_exact():
-            packed = unet2d_segment_volume(
+            masks = unet2d_segment_volume(
                 self.network(vol.device), vol, float(threshold), batch_size=int(batch_size),
-                bits_per_px=bits, whiten=bool(whiten), whiten_eps=float(whiten_eps),
-                dtype=self.dtype,
+                num_classes=self.num_classes, whiten=bool(whiten),
+                whiten_eps=float(whiten_eps), dtype=self.dtype,
             )
         with annotate("dosma.segment.unpack"):
-            return _unpack(packed, vol.shape[1], self.num_classes, bits)
+            return masks.numpy()
 
     def predict_mask(self, v, batch_size: int = 16, threshold: float = 0.5, mean=0.0,
                      std=1.0) -> np.ndarray:
         """Thresholded uint8 masks ``(N, H, W, C)`` on the host for ``v``
         ``(N, H, W, 1)`` in its source dtype, whitened by ``(v - mean) /
-        std`` on its device (``mean`` and ``std`` may be 0-d tensors there).
-
-        C <= 8 classes cross packed into bytes (below a byte a pixel when
-        the width allows it) in one copy; wider heads return the per-class
-        mask.
+        std`` on its device (``mean`` and ``std`` may be 0-d tensors there),
+        written in that layout on the device and crossed in one copy.
         """
         x = as_tensor(v, compute_device(v)).permute(0, 3, 1, 2)
-        c = self.num_classes
-        if c > 8:
-            bits = None
-        else:
-            bits = _bits_per_px(c) if self.fits_packed_volume(x.shape[3]) else 8
         mean, std = (torch.as_tensor(a, dtype=torch.float32, device=x.device)
                      for a in (mean, std))
         with torch.inference_mode(), cudnn_exact():
-            out = _run_batches(self.network(x.device), x, mean, std, float(threshold),
-                               self.dtype, bits, int(batch_size))
-        if bits is None:
-            return out
+            masks = _run_batches(self.network(x.device), x, mean, std, float(threshold),
+                                 self.dtype, self.num_classes, int(batch_size))
         with annotate("dosma.segment.unpack"):
-            return _unpack(out, x.shape[3], c, bits)
+            return masks.numpy()

@@ -35,9 +35,11 @@ one's :func:`trace` included) beside the kernels and copies of the card:
   stages ``dosma.segment.stage`` (the volume to the device, the RSS of two
   echoes, ``reformat`` to sagittal, and, entered again beside the
   network, the cast and the whitening statistics), ``dosma.segment.forward``
-  (the batches through whitening, the network, the threshold and the
-  packing), ``dosma.segment.copy`` (the one device-to-host copy of the
-  masks), ``dosma.segment.unpack`` (the host's unpacking of the bits) and
+  (the batches through whitening, the network and the threshold, each
+  writing its ``(B, H, W, C)`` uint8 masks into one tensor on the device),
+  ``dosma.segment.copy`` (that tensor's one dense device-to-host copy),
+  ``dosma.segment.unpack`` (the host step between the copy and the
+  returned array: a numpy view of the copy, no per-voxel work) and
   ``dosma.segment.masks`` (the category volumes and the reformat back);
 - ``dosma.train`` (``SegTrainer.step``) and its stages ``dosma.train.place``
   (the batch made float32 on the host and its crossing), ``.forward`` (the
@@ -49,7 +51,8 @@ Counters: ``h2d.bytes`` (bytes of host tensors or arrays copied to a card
 by :func:`dosma_tpu_torch.core.device.as_tensor`), ``adam.iterations``
 (iterations of the matrix stages' Adam loops), ``segment.slices`` (slices
 through a segmentation network) and ``segment.mask_bytes`` (bytes of its
-masks' copies to the host), and the hand-written
+masks' copies to the host: one byte a voxel and class, S·H·W·C a call),
+and the hand-written
 kernels' launches ``monoexp_lm.launches``, ``biexp_lm.launches``,
 ``generic_lm.launches``, ``warp_grid.launches`` and
 ``region_stats.launches`` (one a call of the region statistics' kernel

@@ -222,10 +222,9 @@ def test_generate_mask_stages_nest_in_the_segment_span_and_count(tmp_path, name)
     # Staging and reformat, then the whitening statistics beside the network.
     assert sorted(s[0] for s in stages).count("dosma.segment.stage") == 2
     assert {s[3] for s in spans} == {"cpu_op"}
-    bits = {1: 1, 4: 4}[classes]
     assert tprof.counters["segment.slices"] - before.get("segment.slices", 0) == 6
     assert (tprof.counters["segment.mask_bytes"] - before.get("segment.mask_bytes", 0)
-            == 6 * 32 * 32 * bits // 8)
+            == 6 * 32 * 32 * classes)
 
 
 def test_generate_mask_enters_no_span_without_a_profiler(monkeypatch):

@@ -8,7 +8,7 @@ Tolerances:
 - bfloat16 against JAX's bfloat16: max |Δp| <= 2**-7, two bfloat16 steps
   at 0.5 (the two round their convolutions' float32 sums differently);
   masks may differ only where JAX's p is within 2**-7 of 0.5;
-- masks from the packed paths: bit for bit.
+- masks: bit for bit.
 """
 
 import os
@@ -23,6 +23,7 @@ from dosma_tpu.models import seg_model as jseg
 from dosma_tpu.models import unet2d as J
 from dosma_tpu_torch.models import seg_model as tseg
 from dosma_tpu_torch.models import unet2d as T
+from dosma_tpu_torch.utils import profiling as tprof
 
 
 @pytest.fixture(autouse=True)
@@ -219,6 +220,35 @@ def test_segment_volume_refuses_unpackable_width():
     assert tm.fits_packed_volume(64) and not tm.fits_packed_volume(97)
     with pytest.raises(ValueError, match="constraints"):
         tm.predict_mask_volume(torch.zeros(64, 97, 4), batch_size=4)
+
+
+@pytest.mark.parametrize("path,num_classes", [
+    ("volume", 1), ("volume", 4), ("volume", 6), ("slices", 2), ("slices", 9),
+])
+def test_masks_are_returned_c_contiguous_uint8(path, num_classes):
+    """The masks leave the device in the layout returned: the host array is
+    the copy itself, (S, H, W, C) uint8 in C order, 0 or 1."""
+    _, tm = _models(_narrow_params(num_classes=num_classes, features=NARROW[:3]), num_classes,
+                    shape=(32, 32, 1))
+    vol = (np.random.RandomState(10).rand(32, 32, 3) * 900).astype(np.float32)
+    if path == "volume":
+        got = tm.predict_mask_volume(torch.from_numpy(vol), batch_size=2, whiten=True)
+    else:
+        got = tm.predict_mask(np.transpose(vol, (2, 0, 1))[..., None], batch_size=2,
+                              mean=450.0, std=260.0)
+    assert got.dtype == np.uint8 and got.shape == (3, 32, 32, num_classes)
+    assert got.flags["C_CONTIGUOUS"]
+    assert set(np.unique(got)) <= {0, 1}
+
+
+@pytest.mark.parametrize("num_classes", [1, 4, 6])
+def test_segment_volume_counts_one_byte_a_voxel_and_class(num_classes):
+    _, tm = _models(_narrow_params(num_classes=num_classes, features=NARROW[:3]), num_classes,
+                    shape=(32, 32, 1))
+    vol = torch.from_numpy((np.random.RandomState(11).rand(32, 32, 5) * 900).astype(np.float32))
+    before = tprof.counters["segment.mask_bytes"]
+    tm.predict_mask_volume(vol, batch_size=2)
+    assert tprof.counters["segment.mask_bytes"] - before == 5 * 32 * 32 * num_classes
 
 
 def test_whiten_stats_match_jax_and_numpy():
